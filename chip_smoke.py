@@ -1,0 +1,384 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch / CUDA port (``srbh_tpu_torch``) on one card.
+
+    python3 chip_smoke.py
+
+Runs from the root of the repository on a machine with one NVIDIA H100 and
+the CUDA toolkit (``nvcc``). It builds the Hopper window-attention kernel
+from ``srbh_tpu_torch/csrc/``, then drives the port's two serving paths:
+
+1. the card: name, count, ``nvidia-smi`` name and power limit;
+2. the kernel build, with ``-Xptxas -v`` (registers, shared memory, spills);
+3. the kernel against its plain PyTorch version at SwinIR's shapes, with
+   CUDA-event times of the kernel, the plain version and
+   ``F.scaled_dot_product_attention`` as a yardstick (timed only; the port
+   never calls it), beside the kernel's bound;
+4. SwinIR classical-SR x4 at full width (embed 180, 6x6 RSTBs) through
+   ``tools.swinir_harness``: the kernel path against the plain path on the
+   same weights, the launch count of one forward pass (36), the time per
+   image, and the card against the CPU on a small input;
+5. the flagship height step: the tiny configuration on the card against the
+   CPU, then the full-width RRDBNet-23 + EfficientNet-B4 step through
+   ``make_city_step`` at batch 32 in float32 and bfloat16: output shapes,
+   dtypes, finite values, build-softmax sums, tiles/s and peak memory.
+
+TF32 is off for the whole run (``torch.backends.cudnn.allow_tf32`` and
+``torch.backends.cuda.matmul.allow_tf32`` are False), so float32 means
+float32 in every parity check and every float32 time. Weights are random,
+drawn from a seed: no pretrained checkpoint is in the repository.
+
+Any failed check raises and the script exits non-zero. Without a card, or
+outside the repository, it exits non-zero and prints no result. On success
+the line before the last two is a JSON object ``{"kernels": [...]}``, the
+line before the last is ``nvidia-smi``'s name and power limit, and the last
+line is ``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import copy
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+
+ATTN_TOL_F32 = 2e-5  # as tests/test_pallas_attention.py: f32 sums in another order
+ATTN_TOL_BF16 = 3.2e-2  # two bf16 ulps at |o| < 4: the kernel keeps p in f32
+SWIN_TOL = 1e-4  # whole model, relative to max(1, max |out|): f32, 36 blocks
+FLAGSHIP_TOL = 1e-4  # whole model: |a - b| <= tol * (1 + |b|), card vs CPU, f32
+SWIN_BATCH = 8  # 64x64 tiles: B_ = 512 windows a call, 94 MB of q/k/v/o > L2
+CITY_BATCH = 32
+CITY_STEPS = 4
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def cuda_ms(fn, iters=20, warmup=3):
+    """Mean device time of ``fn`` in ms, from CUDA events around ``iters``
+    back-to-back calls after ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def attn_bound_ms(h, b_, n, d, elt, nw):
+    """Least time for one call: q, k, v read once and o written once, the
+    f32 bias (and mask) read once, against 4*h*B_*N^2*d f32 operations."""
+    nbytes = 4 * h * b_ * n * d * elt + h * n * n * 4 + (nw or 0) * n * n * 4
+    ops = 4 * h * b_ * n * n * d
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def attention_f64(q, k, v, bias, mask):
+    """Window attention in float64: a yardstick independent of both the
+    kernel and the float32 plain version."""
+    h, b_, n, d = q.shape
+    s = torch.einsum("hbnd,hbmd->hbnm", q.double() * d ** -0.5, k.double())
+    s = s + bias[:, None].double()
+    if mask is not None:
+        nw = mask.shape[0]
+        s = (s.reshape(h, b_ // nw, nw, n, n) + mask.double()[None, None]
+             ).reshape(h, b_, n, n)
+    return torch.einsum("hbnm,hbmd->hbnd", torch.softmax(s, -1), v.double())
+
+
+def profile(label, fn):
+    """Device time by kernel for one call of ``fn`` (torch.profiler), and the
+    device's idle share of the call's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    rows = [(e.self_device_time_total / 1e3, e.key)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    rows = sorted((r for r in rows if r[0] > 0), reverse=True)
+    busy = sum(ms for ms, _ in rows)
+    if busy == 0:
+        log(f"[profile] {label}: device time not measured (no device events)")
+        return
+    log(f"[profile] {label}: wall {wall_ms:.3f} ms (profiler on), device "
+        f"busy {busy:.3f} ms, idle share {max(0.0, 1 - busy / wall_ms):.3f}")
+    for ms, key in rows[:8]:
+        log(f"[profile]   {ms:9.3f} ms {100 * ms / busy:5.1f}%  {key[:90]}")
+
+
+def phase_device():
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    log(f"[device] {name} count={torch.cuda.device_count()} "
+        f"torch={torch.__version__} cuda={torch.version.cuda}")
+    log(f"[device] nvidia-smi: {smi}")
+    log("[device] TF32 off: cudnn.allow_tf32=False, cuda.matmul.allow_tf32=False")
+    return name, smi
+
+
+def phase_build(wa):
+    t0 = time.perf_counter()
+    path, out = wa.build_kernel()
+    log(f"[build] {path} in {time.perf_counter() - t0:.2f} s")
+    for line in out.splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            log(f"[build] {line.strip()}")
+
+
+def phase_kernel(wa, shift_attn_mask):
+    """Kernel vs plain at every listed shape; times at the classical shape."""
+    rng = np.random.default_rng(0)
+    b = SWIN_BATCH
+    cases = [  # name, heads, B_, N, d, mask image side (None: unmasked), ws, dtype
+        ("classical", 6, 64 * b, 64, 30, None, 8, torch.float32),
+        ("classical_masked", 6, 64 * b, 64, 30, 64, 8, torch.float32),
+        ("padded72_nW81", 6, 81 * 2, 64, 30, 72, 8, torch.float32),
+        ("jpeg_car_N49_nW100", 6, 100 * 2, 49, 30, 70, 7, torch.float32),
+        ("d16", 4, 16 * 4, 64, 16, 32, 8, torch.float32),
+        ("classical_masked_bf16", 6, 64 * b, 64, 30, 64, 8, torch.bfloat16),
+    ]
+    rows = {}
+    for name, h, b_, n, d, side, ws, dt in cases:
+        mk = lambda *s: torch.tensor(rng.normal(size=s).astype(np.float32),
+                                     device="cuda")
+        q, k, v = (mk(h, b_, n, d).to(dt) for _ in range(3))
+        bias = mk(h, n, n)
+        mask = None
+        if side is not None:
+            mask = torch.tensor(shift_attn_mask(side, side, ws, ws // 2),
+                                device="cuda")
+        nw = None if mask is None else mask.shape[0]
+        with torch.inference_mode():
+            got = wa.window_attention(q, k, v, bias, mask)
+            want = wa.window_attention_reference(q, k, v, bias, mask)
+            torch.cuda.synchronize()
+            exact = attention_f64(q, k, v, bias, mask)
+        err = (got.float() - want.float()).abs().max().item()
+        err64 = (got.double() - exact).abs().max().item()
+        err64_plain = (want.double() - exact).abs().max().item()
+        tol = ATTN_TOL_F32 if dt == torch.float32 else ATTN_TOL_BF16
+        log(f"[kernel] {name}: (h={h}, B_={b_}, N={n}, d={d}, nW={nw}, "
+            f"{str(dt)[6:]}) max_abs_err={err:.3e} tol={tol:.1e}; against "
+            f"float64: kernel {err64:.3e}, plain {err64_plain:.3e}")
+        if not (err <= tol and err64 <= tol):
+            raise AssertionError(f"kernel disagrees with plain version at {name}")
+        row = dict(max_abs_err=err)
+        if name.startswith("classical") and dt == torch.float32:
+            full = bias[:, None].expand(h, b_, n, n)
+            if mask is not None:
+                full = full + mask.repeat(b_ // nw, 1, 1)[None]
+            full = full.contiguous()
+            with torch.inference_mode():
+                row["ms"] = cuda_ms(lambda: wa.window_attention(q, k, v, bias, mask))
+                row["plain_ms"] = cuda_ms(
+                    lambda: wa.window_attention_reference(q, k, v, bias, mask))
+                row["library_ms"] = cuda_ms(
+                    lambda: torch.nn.functional.scaled_dot_product_attention(
+                        q, k, v, attn_mask=full))
+            row["bound_ms"], row["bound_by"] = attn_bound_ms(h, b_, n, d, 4, nw)
+            log(f"[kernel] {name}: kernel {row['ms']:.4f} ms, plain "
+                f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms, "
+                f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+        rows[name] = row
+    return rows
+
+
+def phase_swinir(wa, harness):
+    rng = np.random.default_rng(1)
+    model = harness.define_model("classical_sr", 4, device="cuda", seed=0)
+    attns = [m for m in model.modules() if hasattr(m, "use_kernel")]
+    x = torch.tensor(rng.uniform(0, 1, (SWIN_BATCH, 64, 64, 3)).astype(np.float32),
+                     device="cuda")
+
+    def run(use_kernel):
+        for m in attns:
+            m.use_kernel = use_kernel
+        out = harness.apply(model, x)
+        torch.cuda.synchronize()
+        return out
+
+    wa.window_attention.launches = 0
+    out_k = run(True)
+    launches = wa.window_attention.launches
+    out_p = run(False)
+    if out_k.shape != (SWIN_BATCH, 256, 256, 3) or not torch.isfinite(out_k).all():
+        raise AssertionError(f"SwinIR output {tuple(out_k.shape)} not finite/shaped")
+    diff = (out_k - out_p).abs().max().item()
+    scale = max(1.0, out_p.abs().max().item())
+    log(f"[swinir] classical_sr x4, embed 180, 6x6 RSTBs, batch {SWIN_BATCH} "
+        f"x 64x64: kernel vs plain max_abs_diff={diff:.3e} "
+        f"(tol {SWIN_TOL:.0e} x {scale:.3f}); launches per forward={launches}")
+    if launches != 36:
+        raise AssertionError(f"expected 36 kernel launches, got {launches}")
+    if not diff <= SWIN_TOL * scale:
+        raise AssertionError("SwinIR kernel path disagrees with plain path")
+
+    times = {}
+    for use_kernel in (True, False, False, True):
+        for m in attns:
+            m.use_kernel = use_kernel
+        t = cuda_ms(lambda: harness.apply(model, x), iters=5, warmup=1)
+        times.setdefault(use_kernel, []).append(t / SWIN_BATCH)
+    log(f"[swinir] ms per 64x64 image: kernel {times[True]}, plain {times[False]}")
+    for m in attns:
+        m.use_kernel = True
+    profile(f"swinir forward, batch {SWIN_BATCH}, kernel path",
+            lambda: harness.apply(model, x))
+
+    # the card against the CPU on one small input (24x24 -> nW = 9)
+    small = rng.uniform(0, 1, (1, 24, 24, 3)).astype(np.float32)
+    cpu = copy.deepcopy(model).to("cpu")
+    for m in attns:
+        m.use_kernel = True
+    got = harness.apply(model, small).cpu()
+    want = harness.apply(cpu, small)
+    diff_cpu = (got - want).abs().max().item()
+    scale_cpu = max(1.0, want.abs().max().item())
+    log(f"[swinir] 24x24 card vs CPU: max_abs_diff={diff_cpu:.3e} "
+        f"(tol {SWIN_TOL:.0e} x {scale_cpu:.3f})")
+    if not diff_cpu <= SWIN_TOL * scale_cpu:
+        raise AssertionError("SwinIR on the card disagrees with the CPU")
+    return launches, diff, times
+
+
+def phase_flagship(entry, make_city_step):
+    rng = np.random.default_rng(2)
+    # tiny configuration: the card against the CPU, same weights, float32
+    model, sr, _ = entry.flagship(tiny=True, device="cpu", seed=0)
+    g_model, g_sr = copy.deepcopy(model).to("cuda"), copy.deepcopy(sr).to("cuda")
+    img = rng.uniform(0, 1, (4, 64, 64, 8)).astype(np.float32)
+    want = entry.forward(model, sr, torch.from_numpy(img))
+    got = entry.forward(g_model, g_sr, torch.from_numpy(img).cuda())
+    for name, a, b in zip(("height", "build", "aggre"), got, want):
+        err = ((a.cpu() - b).abs() / (1 + b.abs())).max().item()
+        log(f"[flagship] tiny {name} card vs CPU: max |a-b|/(1+|b|)={err:.3e} "
+            f"(tol {FLAGSHIP_TOL:.0e})")
+        if not err <= FLAGSHIP_TOL:
+            raise AssertionError(f"tiny flagship {name} disagrees card vs CPU")
+    h_c, b_c = make_city_step(model, sr, dtype=torch.float32, device="cpu")(img)
+    h_g, b_g = make_city_step(g_model, g_sr, dtype=torch.float32, device="cuda")(img)
+    for name, a, b in (("height u16", h_g, h_c), ("build u8", b_g, b_c)):
+        d = (a.cpu().int() - b.int()).abs()
+        frac = (d > 0).float().mean().item()
+        log(f"[flagship] tiny make_city_step {name}: max LSB diff "
+            f"{d.max().item()}, share differing {frac:.2e}")
+        if d.max().item() > 1 or frac > 1e-3:
+            raise AssertionError(f"tiny make_city_step {name} card vs CPU")
+
+    # full width: RRDBNet-23 + EfficientNet-B4, batch 32 tiles of 64x64
+    model, sr, _ = entry.flagship(device="cuda", seed=0)
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        step = make_city_step(model, sr, dtype=dtype, device="cuda")
+        batches = [torch.tensor(rng.uniform(0, 1, (CITY_BATCH, 64, 64, 8))
+                                .astype(np.float32), device="cuda")
+                   for _ in range(CITY_STEPS)]
+        ctx = (torch.autocast("cuda", dtype=dtype) if dtype != torch.float32
+               else torch.autocast("cuda", enabled=False))
+        with ctx:
+            raw = entry.forward(model, sr, batches[0])
+        if not all(torch.isfinite(t.float()).all() for t in raw):
+            raise AssertionError(f"flagship {dtype} outputs not finite")
+        h, b = step(batches[0])
+        torch.cuda.synchronize()
+        if (h.dtype, tuple(h.shape)) != (torch.uint16, (CITY_BATCH, 256, 256)) or \
+           (b.dtype, tuple(b.shape)) != (torch.uint8, (CITY_BATCH, 256, 256, 7)):
+            raise AssertionError(f"flagship outputs {h.dtype}{tuple(h.shape)} "
+                                 f"{b.dtype}{tuple(b.shape)}")
+        sums = b.int().sum(-1)
+        off = (sums - 255).abs().max().item()
+        if off > 4:  # 7 classes each rounded by at most 0.5
+            raise AssertionError(f"build softmax sums off 255 by {off}")
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for x in batches:
+            step(x)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        tps = CITY_BATCH * CITY_STEPS / dt
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        name = str(dtype)[6:]
+        log(f"[flagship] full width {name}: {tps:.2f} tiles/s at batch "
+            f"{CITY_BATCH} ({CITY_STEPS} steps, {dt:.3f} s), peak "
+            f"{peak:.2f} GiB, build sums within {off} of 255, height max "
+            f"{h.int().max().item()} dm")
+        results[name] = tps
+        profile(f"flagship make_city_step {name}, batch {CITY_BATCH}",
+                lambda: step(batches[0]))
+    return results
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 1
+    from srbh_tpu_torch import entry
+    from srbh_tpu_torch.models.swinir import shift_attn_mask
+    from srbh_tpu_torch.ops import window_attention as wa
+    from srbh_tpu_torch.predict.predictor import make_city_step
+    from srbh_tpu_torch.tools import swinir_harness
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    name, smi = phase_device()
+    phase_build(wa)
+    rows = phase_kernel(wa, shift_attn_mask)
+    launches, swin_diff, swin_times = phase_swinir(wa, swinir_harness)
+    phase_flagship(entry, make_city_step)
+
+    plain, masked = rows["classical"], rows["classical_masked"]
+    kernel = {
+        "name": "window_attention",
+        "route": "cuda",
+        "source": "srbh_tpu_torch/csrc/window_attention.cu",
+        "replaces": "srbh_tpu/ops/pallas/window_attention.py:48 (_attn_kernel)"
+                    " and :70 (_attn_kernel_masked)",
+        "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for n, r in rows.items()
+                           if "bf16" not in n),
+        "ms": plain["ms"],
+        "kernel_ms": plain["ms"],
+        "plain_ms": plain["plain_ms"],
+        "bound_ms": plain["bound_ms"],
+        "bound_by": plain["bound_by"],
+        "library_ms": plain["library_ms"],
+        "masked": {k: masked[k] for k in
+                   ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "shape": [6, 64 * SWIN_BATCH, 64, 30],
+        "swinir_max_abs_diff": swin_diff,
+    }
+    log(f"[done] {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"kernels": [kernel]}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
