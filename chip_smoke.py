@@ -8,19 +8,30 @@ the CUDA toolkit (``nvcc``). It builds the Hopper window-attention kernel
 from ``srbh_tpu_torch/csrc/``, then drives the port's two serving paths:
 
 1. the card: name, count, ``nvidia-smi`` name and power limit;
-2. the kernel build, with ``-Xptxas -v`` (registers, shared memory, spills);
-3. the kernel against its plain PyTorch version at SwinIR's shapes, with
-   CUDA-event times of the kernel, the plain version and
-   ``F.scaled_dot_product_attention`` as a yardstick (timed only; the port
-   never calls it), beside the kernel's bound;
+2. the kernel build, with ``-Xptxas -v`` (registers, shared memory, spills;
+   a spill fails the run);
+3. the kernel against its plain PyTorch version and a float64 reference at
+   SwinIR's shapes (d 10, 16, 30 and 64; N 49 and 64; nW up to 100;
+   contiguous inputs, strided views of a qkv projection, and bias and mask
+   views off an 8-byte boundary; float32 and bfloat16), with device times
+   (CUDA events around CUDA-graph replays of back-to-back calls) of the
+   kernel, the plain version and ``F.scaled_dot_product_attention`` as a
+   yardstick (timed only; the port never calls it), beside the kernel's
+   bound, the achieved TB/s, the share of the bound, the wrapper's host time
+   per call, and the kernel's time from CUDA events around back-to-back
+   Python calls (the method of the first slice, which times the host once
+   the kernel is the shorter); then it frees what the timings keep
+   allocated (``tools.timing.release``);
 4. SwinIR classical-SR x4 at full width (embed 180, 6x6 RSTBs) through
    ``tools.swinir_harness``: the kernel path against the plain path on the
    same weights, the launch count of one forward pass (36), the time per
-   image, and the card against the CPU on a small input;
+   image, the kernel's device time per call from the profiler, and the card
+   against the CPU on a small input;
 5. the flagship height step: the tiny configuration on the card against the
    CPU, then the full-width RRDBNet-23 + EfficientNet-B4 step through
    ``make_city_step`` at batch 32 in float32 and bfloat16: output shapes,
-   dtypes, finite values, build-softmax sums, tiles/s and peak memory.
+   dtypes, finite values, build-softmax sums, tiles/s and peak memory (and
+   the memory allocated when the phase starts).
 
 TF32 is off for the whole run (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32`` are False), so float32 means
@@ -46,7 +57,7 @@ import torch
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12
+FLOP_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
 
 ATTN_TOL_F32 = 2e-5  # as tests/test_pallas_attention.py: f32 sums in another order
 ATTN_TOL_BF16 = 3.2e-2  # two bf16 ulps at |o| < 4: the kernel keeps p in f32
@@ -77,13 +88,20 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def attn_bound_ms(h, b_, n, d, elt, nw):
-    """Least time for one call: q, k, v read once and o written once, the
-    f32 bias (and mask) read once, against 4*h*B_*N^2*d f32 operations."""
-    nbytes = 4 * h * b_ * n * d * elt + h * n * n * 4 + (nw or 0) * n * n * 4
-    ops = 4 * h * b_ * n * n * d
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S
+def attn_bytes(h, b_, n, d, dtype, nw):
+    """Bytes one call must move: q, k, v read once and o written once, the
+    f32 bias (and mask) read once."""
+    elt = torch.finfo(dtype).bits // 8
+    return 4 * h * b_ * n * d * elt + h * n * n * 4 + (nw or 0) * n * n * 4
+
+
+def attn_bound_ms(h, b_, n, d, dtype, nw):
+    """Least time for one call: its bytes at the HBM rate against its
+    4*h*B_*N^2*d operations at the peak rate of the input type."""
+    t_bytes = attn_bytes(h, b_, n, d, dtype, nw) / HBM_BYTES_PER_S
+    t_ops = 4 * h * b_ * n * n * d / FLOP_PER_S[dtype]
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
 
 
 def attention_f64(q, k, v, bias, mask):
@@ -99,9 +117,24 @@ def attention_f64(q, k, v, bias, mask):
     return torch.einsum("hbnm,hbmd->hbnd", torch.softmax(s, -1), v.double())
 
 
+def qkv_views(q, k, v):
+    """q, k and v as SwinIR hands them to the kernel: strided (heads, B_, N,
+    d) views of one (B_, N, 3, heads, d) projection, holding the same
+    values."""
+    qkv = torch.stack([q, k, v]).permute(2, 3, 0, 1, 4).contiguous()
+    return qkv.permute(2, 3, 0, 1, 4).unbind(0)
+
+
+def off_pair(t):
+    """A copy of ``t`` that starts 4 bytes past an 8-byte boundary."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    return flat[1:].view(t.shape).copy_(t)
+
+
 def profile(label, fn):
     """Device time by kernel for one call of ``fn`` (torch.profiler), and the
-    device's idle share of the call's wall time."""
+    device's idle share of the call's wall time. Returns (ms, kernel name)
+    rows, empty if the profiler saw no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -120,11 +153,12 @@ def profile(label, fn):
     busy = sum(ms for ms, _ in rows)
     if busy == 0:
         log(f"[profile] {label}: device time not measured (no device events)")
-        return
+        return []
     log(f"[profile] {label}: wall {wall_ms:.3f} ms (profiler on), device "
         f"busy {busy:.3f} ms, idle share {max(0.0, 1 - busy / wall_ms):.3f}")
     for ms, key in rows[:8]:
         log(f"[profile]   {ms:9.3f} ms {100 * ms / busy:5.1f}%  {key[:90]}")
+    return rows
 
 
 def phase_device():
@@ -143,33 +177,57 @@ def phase_build(wa):
     t0 = time.perf_counter()
     path, out = wa.build_kernel()
     log(f"[build] {path} in {time.perf_counter() - t0:.2f} s")
+    spills = []
     for line in out.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"[build] {line.strip()}")
+        if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line:
+            spills.append(line.strip())
+    if spills:
+        raise AssertionError(f"kernel spills registers: {spills}")
 
 
-def phase_kernel(wa, shift_attn_mask):
-    """Kernel vs plain at every listed shape; times at the classical shape."""
+def phase_kernel(wa, shift_attn_mask, timing):
+    """Kernel vs plain at every listed shape; times at the classical shape
+    (device time from CUDA graphs of back-to-back calls: the kernel is
+    shorter than its wrapper's host time)."""
     rng = np.random.default_rng(0)
     b = SWIN_BATCH
-    cases = [  # name, heads, B_, N, d, mask image side (None: unmasked), ws, dtype
-        ("classical", 6, 64 * b, 64, 30, None, 8, torch.float32),
-        ("classical_masked", 6, 64 * b, 64, 30, 64, 8, torch.float32),
-        ("padded72_nW81", 6, 81 * 2, 64, 30, 72, 8, torch.float32),
-        ("jpeg_car_N49_nW100", 6, 100 * 2, 49, 30, 70, 7, torch.float32),
-        ("d16", 4, 16 * 4, 64, 16, 32, 8, torch.float32),
-        ("classical_masked_bf16", 6, 64 * b, 64, 30, 64, 8, torch.bfloat16),
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [  # name, heads, B_, N, d, mask image side (None: unmasked), ws,
+               # dtype, layout (contiguous; qkv: q/k/v as views of a qkv
+               # projection; offset: bias and mask off an 8-byte boundary), timed
+        ("classical", 6, 64 * b, 64, 30, None, 8, f32, "contiguous", True),
+        ("classical_masked", 6, 64 * b, 64, 30, 64, 8, f32, "contiguous", True),
+        ("classical_qkv", 6, 64 * b, 64, 30, None, 8, f32, "qkv", True),
+        ("classical_masked_qkv", 6, 64 * b, 64, 30, 64, 8, f32, "qkv", True),
+        ("padded72_nW81", 6, 81 * 2, 64, 30, 72, 8, f32, "contiguous", False),
+        ("jpeg_car_N49_nW100", 6, 100 * 2, 49, 30, 70, 7, f32, "contiguous", False),
+        ("d16", 4, 16 * 4, 64, 16, 32, 8, f32, "contiguous", False),
+        ("d16_offset", 4, 16 * 4, 64, 16, 32, 8, f32, "offset", False),
+        ("lightweight_d10_nW16", 6, 16 * b, 64, 10, 32, 8, f32, "contiguous", False),
+        ("d64", 3, 16 * 4, 64, 64, 32, 8, f32, "contiguous", False),
+        ("classical_bf16", 6, 64 * b, 64, 30, None, 8, bf16, "contiguous", True),
+        ("classical_masked_bf16", 6, 64 * b, 64, 30, 64, 8, bf16, "contiguous", True),
+        ("classical_qkv_bf16", 6, 64 * b, 64, 30, None, 8, bf16, "qkv", True),
+        ("classical_masked_qkv_bf16", 6, 64 * b, 64, 30, 64, 8, bf16, "qkv", True),
+        ("jpeg_car_N49_nW100_bf16", 6, 100 * 2, 49, 30, 70, 7, bf16, "contiguous", False),
+        ("d64_bf16", 3, 16 * 4, 64, 64, 32, 8, bf16, "contiguous", False),
     ]
     rows = {}
-    for name, h, b_, n, d, side, ws, dt in cases:
+    for name, h, b_, n, d, side, ws, dt, layout, timed in cases:
         mk = lambda *s: torch.tensor(rng.normal(size=s).astype(np.float32),
                                      device="cuda")
         q, k, v = (mk(h, b_, n, d).to(dt) for _ in range(3))
+        if layout == "qkv":
+            q, k, v = qkv_views(q, k, v)
         bias = mk(h, n, n)
         mask = None
         if side is not None:
             mask = torch.tensor(shift_attn_mask(side, side, ws, ws // 2),
                                 device="cuda")
+        if layout == "offset":
+            bias, mask = off_pair(bias), off_pair(mask)
         nw = None if mask is None else mask.shape[0]
         with torch.inference_mode():
             got = wa.window_attention(q, k, v, bias, mask)
@@ -179,30 +237,44 @@ def phase_kernel(wa, shift_attn_mask):
         err = (got.float() - want.float()).abs().max().item()
         err64 = (got.double() - exact).abs().max().item()
         err64_plain = (want.double() - exact).abs().max().item()
-        tol = ATTN_TOL_F32 if dt == torch.float32 else ATTN_TOL_BF16
+        tol = ATTN_TOL_F32 if dt == f32 else ATTN_TOL_BF16
         log(f"[kernel] {name}: (h={h}, B_={b_}, N={n}, d={d}, nW={nw}, "
-            f"{str(dt)[6:]}) max_abs_err={err:.3e} tol={tol:.1e}; against "
-            f"float64: kernel {err64:.3e}, plain {err64_plain:.3e}")
-        if not (err <= tol and err64 <= tol):
+            f"{str(dt)[6:]}, {layout}) "
+            f"max_abs_err={err:.3e} tol={tol:.1e}; against float64: kernel "
+            f"{err64:.3e}, plain {err64_plain:.3e}")
+        if not (err <= tol and err64 <= tol and got.is_contiguous()):
             raise AssertionError(f"kernel disagrees with plain version at {name}")
         row = dict(max_abs_err=err)
-        if name.startswith("classical") and dt == torch.float32:
+        if timed:
             full = bias[:, None].expand(h, b_, n, n)
             if mask is not None:
                 full = full + mask.repeat(b_ // nw, 1, 1)[None]
-            full = full.contiguous()
+            full = full.to(dt).contiguous()
+            kernel = lambda: wa.window_attention(q, k, v, bias, mask)
             with torch.inference_mode():
-                row["ms"] = cuda_ms(lambda: wa.window_attention(q, k, v, bias, mask))
-                row["plain_ms"] = cuda_ms(
+                row["ms"] = timing.device_ms(kernel)
+                row["events_ms"] = cuda_ms(kernel)
+                row["host_ms"] = timing.host_ms(kernel)
+                row["plain_ms"] = timing.device_ms(
                     lambda: wa.window_attention_reference(q, k, v, bias, mask))
-                row["library_ms"] = cuda_ms(
+                row["library_ms"] = timing.device_ms(
                     lambda: torch.nn.functional.scaled_dot_product_attention(
                         q, k, v, attn_mask=full))
-            row["bound_ms"], row["bound_by"] = attn_bound_ms(h, b_, n, d, 4, nw)
+            row["bound_ms"], row["bound_by"] = attn_bound_ms(h, b_, n, d, dt, nw)
+            row["tb_per_s"] = attn_bytes(h, b_, n, d, dt, nw) / row["ms"] / 1e9
+            row["share_of_bound"] = row["bound_ms"] / row["ms"]
             log(f"[kernel] {name}: kernel {row['ms']:.4f} ms, plain "
                 f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms, "
-                f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+                f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); kernel "
+                f"{row['tb_per_s']:.3f} TB/s, {100 * row['share_of_bound']:.1f} % "
+                f"of the bound; wrapper host time {row['host_ms']:.4f} ms per call; "
+                f"kernel {row['events_ms']:.4f} ms from CUDA events around 20 "
+                f"back-to-back calls")
         rows[name] = row
+    held = torch.cuda.memory_allocated()
+    timing.release()
+    log(f"[kernel] memory allocated after the timings: {held / 2**20:.1f} MiB; "
+        f"after tools.timing.release: {torch.cuda.memory_allocated() / 2**20:.1f} MiB")
     return rows
 
 
@@ -245,8 +317,12 @@ def phase_swinir(wa, harness):
     log(f"[swinir] ms per 64x64 image: kernel {times[True]}, plain {times[False]}")
     for m in attns:
         m.use_kernel = True
-    profile(f"swinir forward, batch {SWIN_BATCH}, kernel path",
-            lambda: harness.apply(model, x))
+    prof = profile(f"swinir forward, batch {SWIN_BATCH}, kernel path",
+                   lambda: harness.apply(model, x))
+    attn = [ms for ms, key in prof if "window_attention_kernel" in key]
+    profiled_ms = sum(attn) / launches if attn else None
+    log("[swinir] window-attention kernel, profiler: "
+        + (f"{profiled_ms:.4f} ms per call" if attn else "not measured"))
 
     # the card against the CPU on one small input (24x24 -> nW = 9)
     small = rng.uniform(0, 1, (1, 24, 24, 3)).astype(np.float32)
@@ -261,10 +337,12 @@ def phase_swinir(wa, harness):
         f"(tol {SWIN_TOL:.0e} x {scale_cpu:.3f})")
     if not diff_cpu <= SWIN_TOL * scale_cpu:
         raise AssertionError("SwinIR on the card disagrees with the CPU")
-    return launches, diff, times
+    return launches, diff, times, profiled_ms
 
 
 def phase_flagship(entry, make_city_step):
+    log(f"[flagship] memory allocated at the start: "
+        f"{torch.cuda.memory_allocated() / 2**20:.1f} MiB")
     rng = np.random.default_rng(2)
     # tiny configuration: the card against the CPU, same weights, float32
     model, sr, _ = entry.flagship(tiny=True, device="cpu", seed=0)
@@ -340,18 +418,19 @@ def main() -> int:
     from srbh_tpu_torch.models.swinir import shift_attn_mask
     from srbh_tpu_torch.ops import window_attention as wa
     from srbh_tpu_torch.predict.predictor import make_city_step
-    from srbh_tpu_torch.tools import swinir_harness
+    from srbh_tpu_torch.tools import swinir_harness, timing
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
     name, smi = phase_device()
     phase_build(wa)
-    rows = phase_kernel(wa, shift_attn_mask)
-    launches, swin_diff, swin_times = phase_swinir(wa, swinir_harness)
+    rows = phase_kernel(wa, shift_attn_mask, timing)
+    launches, swin_diff, swin_times, profiled_ms = phase_swinir(wa, swinir_harness)
     phase_flagship(entry, make_city_step)
 
-    plain, masked = rows["classical"], rows["classical_masked"]
+    # the inputs SwinIR gives the kernel: strided views of its qkv projection
+    plain, masked = rows["classical_qkv"], rows["classical_masked_qkv"]
     kernel = {
         "name": "window_attention",
         "route": "cuda",
@@ -361,15 +440,24 @@ def main() -> int:
         "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for n, r in rows.items()
                            if "bf16" not in n),
+        "max_abs_err_bf16": max(r["max_abs_err"] for n, r in rows.items()
+                                if "bf16" in n),
         "ms": plain["ms"],
         "kernel_ms": plain["ms"],
         "plain_ms": plain["plain_ms"],
         "bound_ms": plain["bound_ms"],
         "bound_by": plain["bound_by"],
         "library_ms": plain["library_ms"],
+        "tb_per_s": plain["tb_per_s"],
+        "share_of_bound": plain["share_of_bound"],
+        "events_ms": plain["events_ms"],
+        "swinir_profiled_ms": profiled_ms,
         "masked": {k: masked[k] for k in
-                   ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+                   ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "tb_per_s", "share_of_bound", "events_ms")},
+        "timed": {n: r for n, r in rows.items() if "ms" in r},
         "shape": [6, 64 * SWIN_BATCH, 64, 30],
+        "layout": "strided q/k/v views of the qkv projection",
         "swinir_max_abs_diff": swin_diff,
     }
     log(f"[done] {time.perf_counter() - t0:.1f} s")

@@ -118,8 +118,7 @@ class WindowAttention(nn.Module):
         heads = self.num_heads
         head_dim = c // heads
         qkv = self.qkv(x).reshape(b_, n, 3, heads, head_dim)
-        qkv = qkv.permute(2, 3, 0, 1, 4)  # (3, heads, B_, N, d)
-        q, k, v = (t.contiguous() for t in qkv.unbind(0))
+        q, k, v = qkv.permute(2, 3, 0, 1, 4).unbind(0)  # (heads, B_, N, d) views
         if self.qk_scale is not None:
             q = q * (self.qk_scale * head_dim ** 0.5)  # fold custom scale in
         bias = self.relative_position_bias_table[self.relative_position_index]

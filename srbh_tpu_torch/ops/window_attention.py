@@ -9,6 +9,9 @@ chunk rule, so every ``nW`` that divides the window count runs on the kernel.
 
 Layout follows the JAX package: q, k, v and the output are
 ``(heads, B_, N, d)``, bias is ``(heads, N, N)``, mask is ``(nW, N, N)``.
+The kernel takes q, k and v as views whose last dimension has stride 1 (for
+SwinIR, the three slices of its qkv projection, uncopied) and writes a
+contiguous output.
 
 The kernel is built at first use with ``nvcc`` into ``build/srbh_tpu_torch/``
 beside the package, as a shared library with a plain C interface, and bound
@@ -95,7 +98,8 @@ def _load() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         for fn in (lib.srbh_window_attention_f32, lib.srbh_window_attention_bf16):
             fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-                           + [ctypes.c_float, ctypes.c_void_p])
+                           + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int,
+                              ctypes.c_void_p])
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -128,8 +132,31 @@ def _check(q, k, v, bias, mask):
         if t.dtype != q.dtype:
             raise TypeError("q, k and v must share one dtype")
     for t in (q, k, v):
-        if not t.is_contiguous():
-            raise ValueError("q, k and v must be contiguous")
+        if t.stride(-1) != 1:
+            raise ValueError("q, k and v must have stride 1 in their last "
+                             "dimension")
+
+
+def copy_width(q, k, v) -> int:
+    """Bytes per copy with which the kernel stages q, k and v: the largest
+    of 16, 8 and 4 that divides the row length and every row's start
+    address, else the element size (plain loads)."""
+    elt = q.element_size()
+    for width in (16, 8, 4):
+        if q.shape[-1] * elt % width == 0 and all(
+                t.data_ptr() % width == 0
+                and all(s * elt % width == 0 for s in t.stride()[:3])
+                for t in (q, k, v)):
+            return width
+    return elt
+
+
+def f32_pairs(t):
+    """``t`` as a contiguous float32 tensor whose start is 8-byte aligned:
+    the kernel reads bias and mask as float2 pairs. A view that starts
+    between two pairs is copied (bias and mask are small)."""
+    t = t.float().contiguous()
+    return t if t.data_ptr() % 8 == 0 else t.clone()
 
 
 def window_attention(q, k, v, bias, mask=None):
@@ -138,7 +165,8 @@ def window_attention(q, k, v, bias, mask=None):
 
     ``window_attention.launches`` counts the kernel's launches; the plain
     path leaves it alone. On a CUDA tensor this launches the kernel or
-    raises: it never falls back to the plain version.
+    raises: it never falls back to the plain version. The output is a
+    contiguous (heads, B_, N, d) tensor.
     """
     if q.device.type == "cpu":
         return window_attention_reference(q, k, v, bias, mask)
@@ -146,19 +174,21 @@ def window_attention(q, k, v, bias, mask=None):
         raise ValueError(f"no window_attention for device {q.device}")
     _check(q, k, v, bias, mask)
     h, b_, n, d = q.shape
-    bias = bias.float().contiguous()
+    bias = f32_pairs(bias)
     if mask is not None:
-        mask = mask.float().contiguous()
+        mask = f32_pairs(mask)
     lib = _load()
     fn = (lib.srbh_window_attention_f32 if q.dtype == torch.float32
           else lib.srbh_window_attention_bf16)
-    out = torch.empty_like(q)
+    strides = (ctypes.c_longlong * 9)(*(s for t in (q, k, v)
+                                         for s in t.stride()[:3]))
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
                  None if mask is None else mask.data_ptr(), out.data_ptr(),
                  h, b_, n, d, 0 if mask is None else mask.shape[0],
-                 d ** -0.5, stream)
+                 d ** -0.5, strides, copy_width(q, k, v), stream)
     if err != 0:
         raise RuntimeError(f"window_attention kernel launch failed: CUDA "
                            f"error {err}")
