@@ -5,7 +5,8 @@
 
 Runs from the root of the repository on a machine with one NVIDIA H100 and
 the CUDA toolkit (``nvcc``). It builds the Hopper window-attention kernel
-from ``srbh_tpu_torch/csrc/``, then drives the port's two serving paths:
+from ``srbh_tpu_torch/csrc/``, then drives the port's two serving paths and
+its training path:
 
 1. the card: name, count, ``nvidia-smi`` name and power limit;
 2. the kernel build, with ``-Xptxas -v`` (registers, shared memory, spills;
@@ -31,7 +32,22 @@ from ``srbh_tpu_torch/csrc/``, then drives the port's two serving paths:
    CPU, then the full-width RRDBNet-23 + EfficientNet-B4 step through
    ``make_city_step`` at batch 32 in float32 and bfloat16: output shapes,
    dtypes, finite values, build-softmax sums, tiles/s and peak memory (and
-   the memory allocated when the phase starts).
+   the memory allocated when the phase starts);
+6. the height model's training path: one ``make_train_step`` of the tiny
+   configuration on the card against the CPU (loss, rmse and log-vars
+   within 1e-4 x (1 + |b|), parameters by their sign-flip fraction); then
+   ``train.trainer.main``, the entry point of ``python -m
+   srbh_tpu_torch.train``, at full width (RRDBNet-23 + EfficientNet-B4,
+   batch 16 tiles of 64x64, float32) on 64 synthetic GeoTIFF tiles for one
+   epoch of 4 steps and a resumed second epoch: finite losses, moved
+   log-vars, every height-model parameter and some BatchNorm statistics
+   changed, the frozen RRDBNet bit-unchanged, the checkpoint reloading to an
+   identical state; the launches of the hand kernel on that path (none);
+   train tiles/s of ``make_train_step`` alone on batches already on the
+   card in float32 and bfloat16, with peak memory and a ``profile`` line
+   each; and the trainer's time per step with its loader in steady state
+   (512 tiles, the prefetch fill left out), beside the loader alone and
+   the time to the first batch.
 
 TF32 is off for the whole run (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32`` are False), so float32 means
@@ -48,8 +64,10 @@ from __future__ import annotations
 
 import copy
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -63,6 +81,13 @@ ATTN_TOL_F32 = 2e-5  # as tests/test_pallas_attention.py: f32 sums in another or
 ATTN_TOL_BF16 = 3.2e-2  # two bf16 ulps at |o| < 4: the kernel keeps p in f32
 SWIN_TOL = 1e-4  # whole model, relative to max(1, max |out|): f32, 36 blocks
 FLAGSHIP_TOL = 1e-4  # whole model: |a - b| <= tol * (1 + |b|), card vs CPU, f32
+TRAIN_TOL = 1e-4  # train step: loss, rmse, log-vars |a - b| <= tol * (1 + |b|)
+# params after one Adam step (every update is +-lr): share of elements that
+# differ by more than 1e-4 card vs CPU, as tests/test_train_step_oracle.py
+TRAIN_FLIP_SHARE = 0.005
+TRAIN_BATCH, TRAIN_TILES, TRAIN_STEPS = 16, 64, 4
+LOOP_TILES = 512  # the steady-state loader timing: 32 batches of 16
+TIMED_STEPS = 6
 SWIN_BATCH = 8  # 64x64 tiles: B_ = 512 windows a call, 94 MB of q/k/v/o > L2
 CITY_BATCH = 32
 CITY_STEPS = 4
@@ -410,6 +435,292 @@ def phase_flagship(entry, make_city_step):
     return results
 
 
+class ScalarLog:
+    """A ``writer`` for ``trainer.main``: keeps every ``add_scalar``."""
+
+    def __init__(self):
+        self.scalars = {}
+
+    def add_scalar(self, tag, value, epoch):
+        self.scalars.setdefault(tag, []).append(float(value))
+
+    def close(self):
+        pass
+
+
+def train_batch(rng, n, tile=64):
+    """One host batch of the train step (NHWC, targets at x4)."""
+    hr = 4 * tile
+    return {
+        "image": rng.uniform(0, 1, (n, tile, tile, 8)).astype(np.float32),
+        "height": rng.integers(0, 100, (n, hr, hr)).astype(np.float32),
+        "weight": rng.uniform(0.5, 2.0, (n, hr, hr)).astype(np.float32),
+        "build": rng.integers(0, 7, (n, hr, hr)).astype(np.int32),
+        "height_aggre": rng.uniform(0, 100, (n, tile, tile)).astype(np.float32),
+        "weight_aggre": rng.uniform(0.5, 2.0, (n, tile, tile)).astype(np.float32),
+    }
+
+
+def write_tiles(root, n):
+    """``n`` synthetic tiles (tests/test_e2e_train.py's recipe at 64x64): s2
+    uint16 (64, 64, 6), s1 float32 (64, 64, 2), bh uint8 (256, 256), the
+    train and validation lists, min-max tables and a height histogram."""
+    from srbh_tpu_torch.data.tiff import write_tiff
+
+    rng = np.random.default_rng(3)
+    names = [f"t_{i}.tif" for i in range(n)]
+    for d in ("s2c", "s1c", "bhc"):
+        os.makedirs(os.path.join(root, d))
+    gt = (500000.0, 10.0, 0.0, 4649776.0, 0.0, -10.0)
+    for name in names:
+        write_tiff(os.path.join(root, "s2c", name),
+                   rng.integers(0, 5000, (64, 64, 6)).astype(np.uint16), gt)
+        write_tiff(os.path.join(root, "s1c", name),
+                   rng.uniform(-25, 5, (64, 64, 2)).astype(np.float32), gt)
+        write_tiff(os.path.join(root, "bhc", name),
+                   rng.integers(0, 100, (256, 256)).astype(np.uint8),
+                   (gt[0], 2.5, 0.0, gt[3], 0.0, -2.5))
+    for split in ("train", "val"):
+        with open(os.path.join(root, f"dl_{split}.csv"), "w") as f:
+            f.writelines(f"{name},s1c,s2c,bhc\n" for name in names)
+    np.savetxt(os.path.join(root, "s2c_minmax.txt"),
+               np.stack([np.zeros(6), np.full(6, 5000.0)]))
+    np.savetxt(os.path.join(root, "s1c_minmax.txt"),
+               np.stack([np.full(2, -25.0), np.full(2, 5.0)]))
+    hist = np.zeros(256)
+    hist[:100] = 1000
+    np.savetxt(os.path.join(root, "bh_stats.txt"), hist)
+
+
+def train_tiny_card_vs_cpu():
+    """One train step of the tiny configuration on the card and on the CPU
+    from the same weights and batch, drop-connect off."""
+    from srbh_tpu_torch.models.height_model import SRRegressClsFeature
+    from srbh_tpu_torch.models.layers import init_weights
+    from srbh_tpu_torch.models.rrdbnet import RRDBNet
+    from srbh_tpu_torch.train.state import TrainState
+    from srbh_tpu_torch.train.steps import make_train_step
+
+    gen = torch.Generator().manual_seed(0)
+    sr = init_weights(RRDBNet(num_block=2, num_feat=16, num_grow_ch=8), gen)
+    model = init_weights(SRRegressClsFeature(
+        "efficientnet-test", super_mid=8, isaggre=True, chans_build=7,
+        sr_chans=16, drop_connect_rate=0.0), gen)
+    batch = train_batch(np.random.default_rng(4), 4)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        m, s = copy.deepcopy(model).to(dev), copy.deepcopy(sr).to(dev)
+        state = TrainState(m)
+        metrics = make_train_step(m, s, device=dev)(state, batch, 1e-3)
+        out[dev] = ({k: v.cpu() for k, v in metrics.items()},
+                    {n: p.detach().cpu() for n, p in m.named_parameters()})
+    (want, p_cpu), (got, p_card) = out["cpu"], out["cuda"]
+    for key in ("loss", "rmse", "log_vars"):
+        err = ((got[key] - want[key]).abs() / (1 + want[key].abs())).max().item()
+        log(f"[train] tiny make_train_step {key} card vs CPU: max "
+            f"|a-b|/(1+|b|)={err:.3e} (tol {TRAIN_TOL:.0e})")
+        if not err <= TRAIN_TOL:
+            raise AssertionError(f"tiny train step {key} disagrees card vs CPU")
+    bad = sum(int(((p_card[n] - p).abs() > 1e-4).sum()) for n, p in p_cpu.items())
+    total = sum(p.numel() for p in p_cpu.values())
+    log(f"[train] tiny make_train_step params card vs CPU: {bad} of {total} "
+        f"elements beyond 1e-4 (share {bad / total:.2e}, limit "
+        f"{TRAIN_FLIP_SHARE})")
+    if not bad / total < TRAIN_FLIP_SHARE:
+        raise AssertionError("tiny train step params disagree card vs CPU")
+
+
+def check_trained(state, init_model, init_sr, scalars):
+    """What one run of ``trainer.main`` must leave behind."""
+    loss, rmse = scalars["train/loss"][-1], scalars["train/rmse"][-1]
+    val = scalars["val/rmse"][-1]
+    lv = state.log_vars.detach().cpu()
+    log(f"[train] trainer.main step {state.step}: train loss {loss:.4f}, rmse "
+        f"{rmse:.4f}, val rmse {val:.4f}, log_vars {lv.tolist()}")
+    if not all(np.isfinite([loss, rmse, val])) or not bool((lv != 0).all()):
+        raise AssertionError("trainer: losses not finite or log_vars unmoved")
+    now = {k: v.cpu() for k, v in state.model.state_dict().items()}
+    was = init_model.state_dict()
+    same = [n for n, _ in init_model.named_parameters()
+            if torch.equal(now[n], was[n])]
+    stats = [k for k in was if k.endswith("running_mean")
+             and not torch.equal(now[k], was[k])]
+    n_params = len(list(init_model.parameters()))
+    log(f"[train] height-model params: {n_params - len(same)} of {n_params} "
+        f"tensors changed; BatchNorm running means changed: {len(stats)}")
+    if same or not stats:
+        raise AssertionError(f"params unchanged {same[:5]} or no BN stat moved")
+    sr_now = {k: v.cpu() for k, v in state.sr_model.state_dict().items()}
+    moved = [k for k, v in init_sr.state_dict().items()
+             if not torch.equal(sr_now[k], v)]
+    log(f"[train] frozen RRDBNet: {len(moved)} of {len(sr_now)} tensors "
+        "differ from the seeded init (bit for bit)")
+    if moved:
+        raise AssertionError(f"the frozen RRDBNet changed: {moved[:5]}")
+
+
+def check_checkpoint(cfg, state):
+    from srbh_tpu_torch.train.checkpoint import load_checkpoint, restore_into_state
+    from srbh_tpu_torch.train.state import TrainState
+    from srbh_tpu_torch.train.trainer import build_models
+
+    payload = load_checkpoint(os.path.join(cfg.logdir, "checkpoint"))
+    model, _ = build_models(cfg)
+    fresh = TrainState(model.to("cuda"))
+    restore_into_state(fresh, payload)
+    live = state.model.state_dict()
+    diff = [k for k, v in fresh.model.state_dict().items()
+            if not torch.equal(v, live[k])]
+    opt_a, opt_b = fresh.optimizer.state_dict(), state.optimizer.state_dict()
+    diff += [f"optimizer {i}.{k}" for i, st in opt_b["state"].items()
+             for k, v in st.items() if not torch.equal(
+                 torch.as_tensor(opt_a["state"][i][k]).cpu(),
+                 torch.as_tensor(v).cpu())]
+    if not torch.equal(fresh.log_vars, state.log_vars) or fresh.step != state.step:
+        diff.append("log_vars/step")
+    log(f"[train] checkpoint (epoch {payload['epoch']}, step "
+        f"{payload['step']}) reloads: {len(diff)} tensors differ")
+    if diff:
+        raise AssertionError(f"checkpoint does not reload identically: {diff[:5]}")
+
+
+def time_steps(cfg, smi):
+    """tiles/s of ``make_train_step`` alone on batches already on the card,
+    float32 and bfloat16, with peak memory and a profile of one step."""
+    from srbh_tpu_torch.train.state import TrainState
+    from srbh_tpu_torch.train.steps import make_train_step
+    from srbh_tpu_torch.train.trainer import build_models
+
+    rng = np.random.default_rng(5)
+    batches = [{k: torch.as_tensor(v, device="cuda") for k, v in
+                train_batch(rng, TRAIN_BATCH).items()} for _ in range(2)]
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        model, sr = build_models(cfg)
+        state = TrainState(model.to("cuda"))
+        step = make_train_step(model, sr, seed=cfg.seed, dtype=dtype,
+                               device="cuda")
+        for i in range(2):
+            step(state, batches[i % 2], 1e-3)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for i in range(TIMED_STEPS):
+            m = step(state, batches[i % 2], 1e-3)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        tps = TRAIN_BATCH * TIMED_STEPS / dt
+        if not torch.isfinite(m["loss"]):
+            raise AssertionError(f"train step {name} loss not finite")
+        log(f"[train] make_train_step {name}, batch {TRAIN_BATCH}, batches on "
+            f"the card: {tps:.2f} tiles/s ({1e3 * dt / TIMED_STEPS:.2f} ms per "
+            f"step over {TIMED_STEPS} steps), peak {peak:.2f} GiB; {smi}")
+        results[name] = dict(tiles_per_s=tps, ms_per_step=1e3 * dt / TIMED_STEPS,
+                             peak_gib=peak)
+        profile(f"train step {name}, batch {TRAIN_BATCH}",
+                lambda: step(state, batches[0], 1e-3))
+        del state, step, model, sr
+        torch.cuda.empty_cache()
+    return results
+
+
+def time_loader(cfg, smi):
+    """The trainer's loop in steady state, loader included: ms per step over
+    an epoch of ``LOOP_TILES`` tiles (the synthetic tiles listed again and
+    again), leaving out the first ``2 x num_workers`` batches (the loader's
+    prefetch fills meanwhile), against the loader alone over the same
+    batches; and the time to each epoch's first batch, apart."""
+    from srbh_tpu_torch.train.state import TrainState
+    from srbh_tpu_torch.train.steps import make_train_step
+    from srbh_tpu_torch.train.trainer import build_models, make_loader
+
+    with open(os.path.join(cfg.datapath, cfg.trainlist)) as f:
+        rows = f.read()
+    with open(os.path.join(cfg.datapath, "dl_loop.csv"), "w") as f:
+        f.write(rows * (LOOP_TILES // TRAIN_TILES))
+    loader = make_loader(cfg, "dl_loop.csv", aug=True, isaggre=True,
+                         ishir=True, preweight=cfg.preweight, device="cuda")
+    model, sr = build_models(cfg)
+    state = TrainState(model.to("cuda"))
+    step = make_train_step(model, sr, seed=cfg.seed, device="cuda")
+    skip = 2 * cfg.num_workers  # torch's DataLoader prefetches 2 a worker
+    timed = {}
+    for what in ("loader + step", "loader alone"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i, batch in enumerate(loader):
+            if i == 0:
+                timed[f"{what}: first batch"] = 1e3 * (time.perf_counter() - t0)
+            if i == skip:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+            if what != "loader alone":
+                step(state, batch, 1e-3)
+        torch.cuda.synchronize()
+        timed[what] = 1e3 * (time.perf_counter() - t1) / (len(loader) - skip)
+    log(f"[train] trainer loop, float32, batch {cfg.batch_size}, "
+        f"{cfg.num_workers} loader processes, steady state (batches "
+        f"{skip}..{len(loader) - 1} of {len(loader)}): "
+        f"{timed['loader + step']:.2f} ms per step with the loader; loader "
+        f"alone {timed['loader alone']:.2f} ms per batch; first batch after "
+        f"{timed['loader + step: first batch']:.1f} ms (with steps) and "
+        f"{timed['loader alone: first batch']:.1f} ms (alone); {smi}")
+    del state, step, model, sr
+    torch.cuda.empty_cache()
+    return timed
+
+
+def phase_train(wa, smi):
+    from srbh_tpu_torch.train.config import TrainConfig
+    from srbh_tpu_torch.train.trainer import build_models, main as train_main
+
+    torch.cuda.empty_cache()
+    log(f"[train] memory allocated at the start: "
+        f"{torch.cuda.memory_allocated() / 2**20:.1f} MiB")
+    train_tiny_card_vs_cpu()
+    with tempfile.TemporaryDirectory() as root:
+        write_tiles(root, TRAIN_TILES)
+        cfg = TrainConfig(
+            datapath=root, trainlist="dl_train.csv", vallist="dl_val.csv",
+            logdir=os.path.join(root, "logs"),
+            logdirhr=os.path.join(root, "no_sr_checkpoint"), datastats=root,
+            preweight=os.path.join(root, "bh_stats.txt"), s1dir="s1c",
+            s2dir="s2c", bhdir="bhc", maxepoch=1, batch_size=TRAIN_BATCH,
+            num_workers=8)
+        init_model, init_sr = build_models(cfg)
+        # the path drives no hand kernel: count its launches all the same
+        wa.window_attention.launches = 0
+        record = ScalarLog()
+        t0 = time.perf_counter()
+        state = train_main(cfg, writer=record, max_steps_per_epoch=TRAIN_STEPS,
+                           device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = wa.window_attention.launches
+        log(f"[train] trainer.main, RRDBNet-23 + EfficientNet-B4, batch "
+            f"{TRAIN_BATCH}, float32, {TRAIN_STEPS} steps + validation + "
+            f"checkpoint: {wall:.2f} s wall (models built on the CPU "
+            f"included); window_attention launches on the train path: "
+            f"{launches}")
+        if state.step != TRAIN_STEPS:
+            raise AssertionError(f"trainer took {state.step} steps")
+        check_trained(state, init_model, init_sr, record.scalars)
+        check_checkpoint(cfg, state)
+        cfg.maxepoch = 2
+        resumed = train_main(cfg, writer=record, max_steps_per_epoch=TRAIN_STEPS,
+                             device="cuda")
+        if resumed.step != 2 * TRAIN_STEPS or len(record.scalars["lr"]) != 2:
+            raise AssertionError(f"resume: step {resumed.step}")
+        check_trained(resumed, init_model, init_sr, record.scalars)
+        del state, resumed
+        torch.cuda.empty_cache()
+        loop = time_loader(cfg, smi)
+    steps = time_steps(cfg, smi)
+    return {"launches": launches, "steps": steps, "loop_ms": loop}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -428,6 +739,7 @@ def main() -> int:
     rows = phase_kernel(wa, shift_attn_mask, timing)
     launches, swin_diff, swin_times, profiled_ms = phase_swinir(wa, swinir_harness)
     phase_flagship(entry, make_city_step)
+    log(f"[train] summary {json.dumps(phase_train(wa, smi))}")
 
     # the inputs SwinIR gives the kernel: strided views of its qkv projection
     plain, masked = rows["classical_qkv"], rows["classical_masked_qkv"]

@@ -14,7 +14,7 @@ into the port's modules with ``load_state_dict``. Layout rules:
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Sequence
+from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -131,6 +131,56 @@ def height_model_state_dict(variables: Mapping,
     if isaggre:
         _conv(sd, "aggre_height", p["aggre_height"])
     return sd
+
+
+def _adam_state(opt_group: Mapping) -> Mapping:
+    """The ``scale_by_adam`` entry (``count``, ``mu``, ``nu``) of one optax
+    group's state, in flax state-dict form: ``inner_state`` of the
+    ``MaskedState``, then of ``inject_hyperparams``, then the chain's entry
+    that holds ``mu``."""
+    chain = opt_group["inner_state"]["inner_state"]
+    return next(v for v in chain.values() if "mu" in v)
+
+
+def train_state_from_jax(params: Mapping, batch_stats: Mapping, log_vars,
+                         opt_state: Optional[Mapping] = None,
+                         encoder_name: str = "efficientnet-b4",
+                         isaggre: bool = True):
+    """The JAX package's height train state -> the port's.
+
+    Returns ``(state_dict, log_vars, moments)``: the height model's state
+    dict (:func:`height_model_state_dict`), the log-vars as a float32
+    tensor, and, when ``opt_state`` is given (the optax state of
+    ``srbh_tpu.train.state.TrainState`` in flax state-dict form, as the JAX
+    checkpoints store it), Adam's ``mu`` / ``nu`` / ``count`` as the torch
+    optimizer's ``exp_avg`` / ``exp_avg_sq`` / ``step`` for
+    ``TrainState.load_moments`` (else ``None``). The moments of each
+    parameter take its layout, so they pass through the same name mapping.
+    """
+    variables = {"params": params, "batch_stats": batch_stats}
+    sd = height_model_state_dict(variables, encoder_name, isaggre)
+    lv = _t(log_vars)
+    if opt_state is None:
+        return sd, lv, None
+    groups = opt_state["inner_states"]
+    model, lvs = _adam_state(groups["model"]), _adam_state(groups["log_vars"])
+    names = [k for k, v in sd.items() if k.rsplit(".", 1)[-1] in
+             ("weight", "bias")]
+
+    def tree(moment):
+        out = height_model_state_dict(
+            {"params": moment["model"], "batch_stats": batch_stats},
+            encoder_name, isaggre)
+        return {k: out[k] for k in names}
+
+    moments = {
+        "model": {"exp_avg": tree(model["mu"]), "exp_avg_sq": tree(model["nu"]),
+                  "step": int(np.asarray(model["count"]))},
+        "log_vars": {"exp_avg": _t(lvs["mu"]["log_vars"]),
+                     "exp_avg_sq": _t(lvs["nu"]["log_vars"]),
+                     "step": int(np.asarray(lvs["count"]))},
+    }
+    return sd, lv, moments
 
 
 def swinir_state_dict(variables: Mapping, depths: Sequence[int] = (6, 6, 6, 6),

@@ -7,8 +7,12 @@ momentum 0.99 (torch momentum 0.01), the SE width taken from the block
 efficientnet-pytorch: ``_conv_stem``, ``_bn0``, ``_blocks.{n}._expand_conv/
 _bn0/_depthwise_conv/_bn1/_se_reduce/_se_expand/_project_conv/_bn2``.
 
-Forward only: drop-connect, which only training uses, waits for the
-train-step port, and training mode with a non-zero drop rate raises.
+Drop-connect (training mode only) follows ``srbh_tpu/models/efficientnet.py
+:115-125``: on identity blocks, one uniform ``u`` per sample, the mask
+``floor(keep + u)`` and ``h / keep * mask``, at the block rate
+``drop_connect_rate * block_idx / total_blocks``. The draws come from the
+``generator`` passed to ``forward`` (the global generator if none is
+given); their bits differ from the JAX package's PRNG.
 """
 from __future__ import annotations
 
@@ -115,10 +119,7 @@ class MBConv(nn.Module):
         self.identity = stride == 1 and in_ch == out_ch
         self.drop_rate = drop_rate
 
-    def forward(self, x):
-        if self.training and self.identity and self.drop_rate > 0.0:
-            raise NotImplementedError(
-                "drop-connect (training) is not ported yet")
+    def forward(self, x, generator=None):
         h = x
         if self.has_expand:
             h = F.silu(self._bn0(self._expand_conv(h)))
@@ -128,6 +129,11 @@ class MBConv(nn.Module):
         h = h * torch.sigmoid(s)
         h = self._bn2(self._project_conv(h))
         if self.identity:
+            if self.training and self.drop_rate > 0.0:
+                keep = 1.0 - self.drop_rate
+                u = torch.rand((x.shape[0], 1, 1, 1), generator=generator,
+                               device=x.device, dtype=torch.float32)
+                h = h / keep * torch.floor(keep + u).to(h.dtype)
             h = h + x
         return h
 
@@ -137,7 +143,8 @@ class EfficientNetEncoder(nn.Module):
     ``[x, f2, f4, f8, f16, f32]``; B4 widths (C_in, 48, 32, 56, 160, 448)."""
 
     def __init__(self, model_name: str = "efficientnet-b4",
-                 in_channels: int = 8):
+                 in_channels: int = 8,
+                 drop_connect_rate: float = DROP_CONNECT_RATE):
         super().__init__()
         width, depth, _ = SCALING[model_name]
         stem = round_filters(32, width)
@@ -151,7 +158,7 @@ class EfficientNetEncoder(nn.Module):
         for si, (expand, kernel, stride, base_c, _) in enumerate(_B0_STAGES, 1):
             out_ch = round_filters(base_c, width)
             for bi in range(repeats[si - 1]):
-                rate = DROP_CONNECT_RATE * len(blocks) / total
+                rate = drop_connect_rate * len(blocks) / total
                 blocks.append(MBConv(ch, out_ch, expand, kernel,
                                      stride if bi == 0 else 1, drop_rate=rate))
                 ch = out_ch
@@ -166,12 +173,12 @@ class EfficientNetEncoder(nn.Module):
         return (in_channels, round_filters(32, width), ch[1], ch[2], ch[4],
                 ch[6])
 
-    def forward(self, x) -> List[torch.Tensor]:
+    def forward(self, x, generator=None) -> List[torch.Tensor]:
         feats = [x]
         h = F.silu(self._bn0(self._conv_stem(x)))
         feats.append(h)
         for i, block in enumerate(self._blocks):
-            h = block(h)
+            h = block(h, generator)
             if i in self._taps:
                 feats.append(h)
         return feats

@@ -34,7 +34,11 @@ def test_port_has_the_slice_modules():
                  "models.layers", "models.rrdbnet", "models.efficientnet",
                  "models.unet_decoder", "models.hrfuse", "models.height_model",
                  "models.swinir", "predict.predictor", "tools.swinir_harness",
-                 "entry", "convert"):
+                 "entry", "convert", "losses.adaptive", "ops.hierarchy",
+                 "ops.normalize", "data.tiff", "data.augment", "data.dataset",
+                 "data.pipeline", "metrics.streaming", "train.schedule",
+                 "train.state", "train.steps", "train.config",
+                 "train.checkpoint", "train.trainer", "train.__main__"):
         assert f"srbh_tpu_torch.{name}" in mods
 
 
@@ -64,8 +68,12 @@ def test_port_has_no_try_statements():
 
 def _entry_points():
     from srbh_tpu_torch import entry
+    from srbh_tpu_torch.data.pipeline import DataLoader
     from srbh_tpu_torch.predict.predictor import make_city_step
     from srbh_tpu_torch.tools import swinir_harness
+    from srbh_tpu_torch.train import trainer
+    from srbh_tpu_torch.train.config import TrainConfig
+    from srbh_tpu_torch.train.steps import make_train_step
 
     return {
         "flagship": lambda: entry.flagship(tiny=True),
@@ -73,11 +81,15 @@ def _entry_points():
         "make_city_step": lambda: make_city_step(torch.nn.Identity(),
                                                  torch.nn.Identity()),
         "define_model": lambda: swinir_harness.define_model("classical_sr", 4),
+        "trainer.main": lambda: trainer.main(TrainConfig()),
+        "make_train_step": lambda: make_train_step(torch.nn.Identity(), None),
+        "DataLoader": lambda: DataLoader([], device_put=True),
     }
 
 
 @pytest.mark.parametrize("name", ["flagship", "entry", "make_city_step",
-                                  "define_model"])
+                                  "define_model", "trainer.main",
+                                  "make_train_step", "DataLoader"])
 def test_entry_points_need_a_card_by_default(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
