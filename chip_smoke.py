@@ -47,7 +47,22 @@ its training path:
    card in float32 and bfloat16, with peak memory and a ``profile`` line
    each; and the trainer's time per step with its loader in steady state
    (512 tiles, the prefetch fill left out), beside the loader alone and
-   the time to the first batch.
+   the time to the first batch;
+7. the city predictor: ``predict_city`` of the tiny configuration on the
+   card against the CPU on a synthetic 200x150 city; then a synthetic city
+   of 2048 x 2048 source pixels (S2, S1, a WSF disc of half the area, a
+   64/56 fishnet of 1369 cells, a checkpoint ``checkpoint20`` of the
+   full-width model) through the CLI twin's ``main`` (``python -m
+   srbh_tpu_torch.predict``: bfloat16, batch 16, host stitching), with the
+   hand kernel's launches counted over it (none): 8192 x 8192 tifs at
+   2.5 m, the colormap, classes <= 6, heights where the valid cells lie,
+   and a resumed second ``main``; then ``predict_city`` with the device
+   stitcher at batch 32 (no fallback; its mosaics against the CLI's), one
+   pass's tiles fed to both stitchers (byte-equal mosaics), and the numbers:
+   windows/s end to end by stitcher, of the step alone and of the loader
+   alone, ms per batch of each stitcher's ``add_batch``, seconds of
+   finalize and GeoTIFF writes, device and host peak memory, and a
+   ``profile`` line of the device-stitch run.
 
 TF32 is off for the whole run (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32`` are False), so float32 means
@@ -91,6 +106,13 @@ TIMED_STEPS = 6
 SWIN_BATCH = 8  # 64x64 tiles: B_ = 512 windows a call, 94 MB of q/k/v/o > L2
 CITY_BATCH = 32
 CITY_STEPS = 4
+# phase 7: source pixels of the full-width city (20.48 km at 10 m: the order
+# of the reference's *_large urban centers), the CLI's batch and the device
+# stitcher's, and the quantised-output limit (<= 1 LSB on <= 0.1 % of
+# pixels, classes differing on <= 0.1 %)
+CITY_SIDE, CLI_BATCH, DEVICE_STITCH_BATCH = 2048, 16, 32
+QUANT_SHARE = 1e-3
+GRID_KW = dict(s1dir="s1x", s2dir="s2x", gridvalid="isv", nchans=6)
 
 
 def log(*args):
@@ -156,18 +178,21 @@ def off_pair(t):
     return flat[1:].view(t.shape).copy_(t)
 
 
-def profile(label, fn):
+def profile(label, fn, warm=True, host_ops=True):
     """Device time by kernel for one call of ``fn`` (torch.profiler), and the
-    device's idle share of the call's wall time. Returns (ms, kernel name)
+    device's idle share of the call's wall time, after one call unprofiled
+    if ``warm``. ``host_ops=False`` traces the device only (a long call's
+    host ops take the profiler minutes to sort). Returns (ms, kernel name)
     rows, empty if the profiler saw no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + [ProfilerActivity.CPU] * host_ops
+    with torch_profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -721,6 +746,354 @@ def phase_train(wa, smi):
     return {"launches": launches, "steps": steps, "loop_ms": loop}
 
 
+def write_city(root, name, side_w, side_h, seed):
+    """A synthetic city with the port's writers (uncompressed, as the JAX
+    package's tests write them): S2 6-band uint16, S1 2-band float32, a WSF
+    mask built-up in a central disc of half the area, the 64/56 fishnet
+    tagged valid where a cell holds >= 20 built-up pixels, min-max tables."""
+    from srbh_tpu_torch.data.grid import fishgrid_stats, write_fishgrid
+    from srbh_tpu_torch.data.tiff import write_tiff
+
+    rng = np.random.default_rng(seed)
+    gt = (500000.0, 10.0, 0.0, 4649776.0, 0.0, -10.0)
+    os.makedirs(os.path.join(root, "stats"), exist_ok=True)
+    path = lambda suffix: os.path.join(root, f"{name}_{suffix}.tif")
+    write_tiff(path("s2"), rng.integers(0, 5000, (side_h, side_w, 6),
+                                        dtype=np.uint16), gt)
+    write_tiff(path("s1"), rng.uniform(-25, 5, (side_h, side_w, 2)
+                                       ).astype(np.float32), gt)
+    yy, xx = np.ogrid[:side_h, :side_w]
+    disc = (yy - side_h / 2) ** 2 + (xx - side_w / 2) ** 2 <= \
+        side_h * side_w / (2 * np.pi)
+    write_tiff(path("wsf"), disc.astype(np.uint8) * 255, gt)
+    write_fishgrid(path("s2"), 64, 56)
+    fishgrid_stats(path("wsf"), path("s2")[:-4] + "_grid.shp",
+                   condition=(0, 20, 4096))
+    np.savetxt(os.path.join(root, "stats", "s2x_minmax.txt"),
+               np.stack([np.zeros(6), np.full(6, 5000.0)]))
+    np.savetxt(os.path.join(root, "stats", "s1x_minmax.txt"),
+               np.stack([np.full(2, -25.0), np.full(2, 5.0)]))
+
+
+def read_mosaic(paths):
+    """(classes, heights) of a (build tif, height tif) pair."""
+    from srbh_tpu_torch.data.tiff import TiffReader
+
+    return tuple(TiffReader(p).read()[..., 0] for p in paths)
+
+
+def compare_mosaics(label, got, want):
+    """Two (classes, heights) mosaics within the quantised-output limit;
+    returns (share of heights differing, share of classes differing)."""
+    (cg, hg), (cw, hw) = got, want
+    d = np.abs(hg.astype(np.int32) - hw.astype(np.int32))
+    share_h, share_c = float((d > 0).mean()), float((cg != cw).mean())
+    log(f"[city] {label}: height max LSB diff {d.max()}, share differing "
+        f"{share_h:.2e}; classes differing {share_c:.2e} (limit 1 LSB on "
+        f"{QUANT_SHARE:.0e})")
+    if d.max() > 1 or share_h > QUANT_SHARE or share_c > QUANT_SHARE:
+        raise AssertionError(f"{label}: mosaics differ beyond the limit")
+    return share_h, share_c
+
+
+def city_tiny_card_vs_cpu(entry, root):
+    """``predict_city`` of the tiny configuration (float32) on a 200x150
+    city: the card (device stitcher) against the CPU (host stitcher)."""
+    from srbh_tpu_torch.data.grid import GridImageDataset
+    from srbh_tpu_torch.predict.predictor import make_city_step, predict_city
+
+    write_city(root, "tiny", 200, 150, seed=6)
+    model, sr, _ = entry.flagship(tiny=True, device="cpu", seed=0)
+    with torch.no_grad():  # heights above the clamp at 0
+        model.reg.conv_last.bias.fill_(2.0)
+    ds = GridImageDataset(root, "tiny", os.path.join(root, "stats"), **GRID_KW)
+    paths = {}
+    for dev, stitch in (("cpu", "host"), ("cuda", "device")):
+        step = make_city_step(copy.deepcopy(model), copy.deepcopy(sr),
+                              dtype=torch.float32, device=dev)
+        paths[dev] = predict_city(ds, step, os.path.join(root, dev), "tiny",
+                                  batch_size=8, stitch=stitch, device=dev)
+    log(f"[city] tiny city 200x150, {len(ds)} valid windows")
+    compare_mosaics("tiny predict_city card (device stitch) vs CPU (host "
+                    "stitch), float32", read_mosaic(paths["cuda"]),
+                    read_mosaic(paths["cpu"]))
+
+
+def check_city_outputs(paths, ds):
+    """The CLI's tifs of the full-width city."""
+    from srbh_tpu_torch.data.tiff import TiffReader
+    from srbh_tpu_torch.predict.colormap import CMAP
+
+    b, h = TiffReader(paths[0]), TiffReader(paths[1])
+    side = 4 * CITY_SIDE
+    for r in (b, h):
+        gt = r.geotransform
+        if (r.width, r.height) != (side, side) or (gt[1], gt[5]) != (2.5, -2.5):
+            raise AssertionError(f"{r.path}: {r.width}x{r.height}, {gt}")
+    cmap = b.info().colormap
+    classes, heights = b.read()[..., 0], h.read()[..., 0]
+    covered = np.zeros((side, side), bool)
+    for x, y, xc, yc in ds.pos:
+        covered[4 * y: 4 * (y + yc), 4 * x: 4 * (x + xc)] = True
+    nonzero = float((heights[covered] > 0).mean())
+    log(f"[city] CLI tifs {side}x{side} at 2.5 m: build {b.dtype} (colormap "
+        f"{'yes' if cmap else 'no'}, classes {np.bincount(classes.ravel(), minlength=7).tolist()}), "
+        f"height {h.dtype} (compression {h.compression}, max {heights.max()} dm); "
+        f"{covered.mean():.3f} of the mosaic under valid cells, {nonzero:.4f} "
+        "of it with a height > 0")
+    if not cmap or cmap[6] != CMAP[6] or classes.max() > 6 or h.dtype != np.uint16:
+        raise AssertionError("build tif: colormap or classes wrong")
+    if nonzero < 0.99 or heights[~covered].any():
+        raise AssertionError("heights missing under valid cells or set outside")
+
+
+def time_city_parts(ds, step, timed):
+    """One pass of the step's outputs at the device stitcher's batch fed to
+    both stitchers (byte-equal mosaics), timing each ``add_batch``, the copy
+    to the host, each finalize and the GeoTIFF writes; then the step alone
+    on batches already on the card and the loader alone. Returns the host
+    stitcher's (classes, heights)."""
+    from srbh_tpu_torch.data.pipeline import DataLoader
+    from srbh_tpu_torch.predict.device_stitcher import DeviceMosaicAccumulator
+    from srbh_tpu_torch.predict.stitcher import MosaicAccumulator
+    from srbh_tpu_torch.predict.writers import array2raster, array2raster_rio
+
+    host = MosaicAccumulator(ds.width, ds.height, 7)
+    dev = DeviceMosaicAccumulator(ds.width, ds.height, 7, device="cuda")
+    loader = DataLoader(ds, batch_size=DEVICE_STITCH_BATCH, num_workers=4,
+                        device_put=True, device="cuda", host_keys=("pos",))
+    t = dict(copy=0.0, host_add=0.0, device_add=0.0)
+    batches = 0
+    for batch in loader:
+        h, b = step(batch["image"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hn, bn = h.cpu().numpy(), b.cpu().numpy()
+        t1 = time.perf_counter()
+        host.add_batch(hn, bn, batch["pos"].numpy())
+        t2 = time.perf_counter()
+        dev.add_batch(h, b, batch["pos"])
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        t["copy"] += t1 - t0
+        t["host_add"] += t2 - t1
+        t["device_add"] += t3 - t2
+        batches += 1
+    t0 = time.perf_counter()
+    want = host.finalize()
+    t1 = time.perf_counter()
+    got = dev.finalize()
+    t2 = time.perf_counter()
+    equal = all(a.dtype == b.dtype and np.array_equal(a, b) for a, b in zip(got, want))
+    with tempfile.TemporaryDirectory() as out:
+        t3 = time.perf_counter()
+        array2raster_rio(os.path.join(out, "b.tif"), want[1], ds.s2path,
+                         nresolution=2.5, iscmap=True)
+        array2raster(os.path.join(out, "h.tif"), want[0], ds.s2path,
+                     nresolution=2.5, compress="DEFLATE")
+        t4 = time.perf_counter()
+    del host, dev
+    torch.cuda.empty_cache()
+    timed.update({f"{k}_ms_per_batch": 1e3 * v / batches for k, v in t.items()})
+    timed.update(host_finalize_s=t1 - t0, device_finalize_s=t2 - t1,
+                 tif_writes_s=t4 - t3)
+    log(f"[city] identical tiles ({batches} batches of {DEVICE_STITCH_BATCH}) "
+        f"into both stitchers: mosaics byte-equal: {equal}; ms per batch: "
+        f"copy to host {timed['copy_ms_per_batch']:.2f}, host add_batch "
+        f"{timed['host_add_ms_per_batch']:.2f}, device add_batch "
+        f"{timed['device_add_ms_per_batch']:.2f}; finalize host "
+        f"{timed['host_finalize_s']:.2f} s, device {timed['device_finalize_s']:.2f} s "
+        f"(with its copy to the host); two GeoTIFF writes {timed['tif_writes_s']:.2f} s")
+    if not equal:
+        raise AssertionError("device stitcher != host stitcher on identical tiles")
+
+    x = torch.stack([torch.from_numpy(ds[i]["image"]) for i in
+                     range(DEVICE_STITCH_BATCH)]).cuda()
+    # the same windows in a batch of 16 and in one of 32: how far bfloat16
+    # outputs depend on the batch (cuDNN may pick other kernels)
+    (h16, b16), (h32, b32) = step(x[:CLI_BATCH]), step(x)
+    d = (h16.int() - h32[:CLI_BATCH].int()).abs()
+    timed["batch_dependence"] = dict(
+        height_max_lsb=d.max().item(), height_share=(d > 0).float().mean().item(),
+        class_share=(b16.int().argmax(-1) != b32[:CLI_BATCH].int().argmax(-1)
+                     ).float().mean().item())
+    log(f"[city] the same {CLI_BATCH} windows at batch {CLI_BATCH} and "
+        f"{DEVICE_STITCH_BATCH}, bfloat16: {timed['batch_dependence']}")
+    for bs in (CLI_BATCH, DEVICE_STITCH_BATCH):
+        step(x[:bs])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(8):
+            step(x[:bs])
+        torch.cuda.synchronize()
+        timed[f"step_alone_windows_per_s_b{bs}"] = 8 * bs / (time.perf_counter() - t0)
+    loader = DataLoader(ds, batch_size=CLI_BATCH, num_workers=4,
+                        device_put=True, device="cuda", host_keys=("pos",))
+    t0 = time.perf_counter()
+    n = 0
+    for batch in loader:
+        n += batch["image"].shape[0]
+    torch.cuda.synchronize()
+    timed["loader_alone_windows_per_s"] = n / (time.perf_counter() - t0)
+    log(f"[city] make_city_step alone, bfloat16, batches on the card: "
+        f"{timed[f'step_alone_windows_per_s_b{CLI_BATCH}']:.1f} windows/s at batch "
+        f"{CLI_BATCH}, {timed[f'step_alone_windows_per_s_b{DEVICE_STITCH_BATCH}']:.1f} "
+        f"at batch {DEVICE_STITCH_BATCH}; loader alone (4 processes, batch "
+        f"{CLI_BATCH}, to the card): {timed['loader_alone_windows_per_s']:.1f} windows/s")
+    return want[1], want[0]
+
+
+def phase_city(wa, entry, smi):
+    import contextlib
+    import io
+    import resource
+
+    from srbh_tpu_torch.data.grid import GridImageDataset
+    from srbh_tpu_torch.predict import __main__ as cli
+    from srbh_tpu_torch.predict.predictor import make_city_step, predict_city
+    from srbh_tpu_torch.train.checkpoint import save_checkpoint
+    from srbh_tpu_torch.train.config import get_args
+    from srbh_tpu_torch.train.state import TrainState
+    from srbh_tpu_torch.train.trainer import build_models
+
+    torch.cuda.empty_cache()
+    timed = {"memory_at_start_mib": torch.cuda.memory_allocated() / 2**20,
+             "host_peak_rss_gib_before": resource.getrusage(
+                 resource.RUSAGE_SELF).ru_maxrss / 2**20}
+    torch.cuda.reset_peak_memory_stats()
+    log(f"[city] memory allocated at the start: {timed['memory_at_start_mib']:.1f} MiB")
+    t_phase = time.perf_counter()
+    stages, last = [], [t_phase]
+
+    def stage(name):
+        """Seconds since the last stage, and the host peak RSS so far."""
+        now = time.perf_counter()
+        stages.append((name, round(now - last[0], 2), round(resource.getrusage(
+            resource.RUSAGE_SELF).ru_maxrss / 2**20, 2)))
+        last[0] = now
+
+    with tempfile.TemporaryDirectory() as root:
+        city_tiny_card_vs_cpu(entry, os.path.join(root, "tiny"))
+        stage("tiny card vs CPU")
+
+        region = os.path.join(root, "data", "urban", "input_data", "s2chn_large")
+        t0 = time.perf_counter()
+        write_city(region, "synth", CITY_SIDE, CITY_SIDE, seed=7)
+        ds = GridImageDataset(region, "synth", os.path.join(region, "stats"),
+                              **GRID_KW)
+        n_cells = len(GridImageDataset(region, "synth", os.path.join(
+            region, "stats"), **dict(GRID_KW, gridvalid=None)))
+        timed["city_write_s"] = time.perf_counter() - t0
+        logdir = os.path.join(root, "logs")
+        argv = ["--datapath", os.path.join(root, "data"), "--logdir", logdir,
+                "--logdirhr", os.path.join(root, "no_sr_checkpoint"),
+                "--datastats", os.path.join(region, "stats"),
+                "--s1dir", "s1x", "--s2dir", "s2x"]
+        cfg = get_args(city="globe", argv=argv)
+        model, sr = build_models(cfg)  # the CLI builds the same seeded ones
+        with torch.no_grad():  # heights above the clamp at 0
+            model.reg.conv_last.bias.fill_(2.0)
+        os.makedirs(logdir)
+        save_checkpoint(logdir, TrainState(model), 20, 0.0)  # + checkpoint20
+        stage("city and checkpoint written")
+        log(f"[city] synthetic city {CITY_SIDE}x{CITY_SIDE} written in "
+            f"{timed['city_write_s']:.2f} s: {n_cells} cells, {len(ds)} valid")
+
+        # the main path: the CLI twin, counted
+        inner = cli.predict_cities
+
+        def predict_cities_timed(*args, **kwargs):
+            t = time.perf_counter()
+            out = inner(*args, **kwargs)
+            torch.cuda.synchronize()
+            timed["cli_predict_cities_s"] = time.perf_counter() - t
+            return out
+
+        cli.predict_cities = predict_cities_timed
+        wa.window_attention.launches = 0
+        t0 = time.perf_counter()
+        results = cli.main(argv)
+        torch.cuda.synchronize()
+        timed["cli_main_s"] = time.perf_counter() - t0
+        launches = wa.window_attention.launches
+        cli.predict_cities = inner
+        timed["host_stitch_windows_per_s"] = len(ds) / timed["cli_predict_cities_s"]
+        log(f"[city] CLI main (bfloat16, batch {CLI_BATCH}, host stitch): "
+            f"{timed['cli_main_s']:.2f} s (models built on the CPU included), "
+            f"predict_cities {timed['cli_predict_cities_s']:.2f} s = "
+            f"{timed['host_stitch_windows_per_s']:.1f} windows/s end to end; "
+            f"window_attention launches on the city path: {launches}; {smi}")
+        if len(results) != 1:
+            raise AssertionError(f"CLI predicted {len(results)} cities")
+        stage("CLI main")
+        check_city_outputs(results[0], ds)
+        stage("CLI outputs checked")
+        stamps = [os.stat(p).st_mtime_ns for p in results[0]]
+        t0 = time.perf_counter()
+        again = cli.main(argv)
+        timed["cli_resume_s"] = time.perf_counter() - t0
+        if again != results or [os.stat(p).st_mtime_ns for p in results[0]] != stamps:
+            raise AssertionError("a second CLI main rewrote the city")
+        log(f"[city] second CLI main (resume): {timed['cli_resume_s']:.2f} s, "
+            "nothing rewritten")
+        stage("CLI resume")
+
+        # the device stitcher on the same city
+        step = make_city_step(model, sr, device="cuda")
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            t0 = time.perf_counter()
+            dev_paths = predict_city(ds, step, os.path.join(root, "dev"), "synth",
+                                     batch_size=DEVICE_STITCH_BATCH,
+                                     stitch="device")
+            torch.cuda.synchronize()
+            timed["device_stitch_s"] = time.perf_counter() - t0
+        if printed.getvalue():
+            log(printed.getvalue().strip())
+        if "falling back" in printed.getvalue():
+            raise AssertionError("the device stitcher fell back to the host")
+        timed["device_stitch_windows_per_s"] = len(ds) / timed["device_stitch_s"]
+        timed["peak_device_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        log(f"[city] predict_city, device stitch, batch {DEVICE_STITCH_BATCH}: "
+            f"{timed['device_stitch_s']:.2f} s = "
+            f"{timed['device_stitch_windows_per_s']:.1f} windows/s end to end; "
+            f"peak device memory {timed['peak_device_gib']:.2f} GiB; {smi}")
+        stage("device stitch")
+        # bfloat16 outputs depend on the batch (cuDNN picks other kernels), so
+        # the device-stitched mosaics are held against the host stitcher fed
+        # by the same step at the same batch
+        host_mosaic = time_city_parts(ds, step, timed)
+        compare_mosaics(f"predict_city device stitch vs the step's tiles through "
+                        f"the host stitcher, bfloat16, batch {DEVICE_STITCH_BATCH}",
+                        read_mosaic(dev_paths), host_mosaic)
+        del host_mosaic
+        stage("identical tiles, step and loader alone, compare")
+        runs = iter(range(10))
+        profile(f"predict_city, device stitch, batch {DEVICE_STITCH_BATCH}",
+                lambda: predict_city(ds, step, os.path.join(root, f"prof{next(runs)}"),
+                                     "synth", batch_size=DEVICE_STITCH_BATCH,
+                                     stitch="device"), warm=False,
+                host_ops=False)
+        stage("profile of a device-stitch run")
+        reader_mib = sum(os.path.getsize(p) for p in (ds.s2path, ds.s1path)) / 2**20
+        del model, sr, step
+    torch.cuda.empty_cache()
+    timed["host_peak_rss_gib"] = resource.getrusage(
+        resource.RUSAGE_SELF).ru_maxrss / 2**20
+    timed["worker_peak_rss_gib"] = resource.getrusage(
+        resource.RUSAGE_CHILDREN).ru_maxrss / 2**20
+    stage("clean-up")
+    timed["phase_s"] = time.perf_counter() - t_phase
+    timed["stages"] = stages
+    log(f"[city] stages (name, seconds, host peak RSS GiB so far): {stages}")
+    log(f"[city] host peak RSS {timed['host_peak_rss_gib']:.2f} GiB (before "
+        f"the phase {timed['host_peak_rss_gib_before']:.2f}), largest child "
+        f"{timed['worker_peak_rss_gib']:.2f} GiB; the readers hold the city's "
+        f"S2 + S1 files whole: {reader_mib:.1f} MiB a process; phase "
+        f"{timed['phase_s']:.1f} s")
+    return {"launches": launches, **timed}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -739,7 +1112,10 @@ def main() -> int:
     rows = phase_kernel(wa, shift_attn_mask, timing)
     launches, swin_diff, swin_times, profiled_ms = phase_swinir(wa, swinir_harness)
     phase_flagship(entry, make_city_step)
-    log(f"[train] summary {json.dumps(phase_train(wa, smi))}")
+    train = phase_train(wa, smi)
+    log(f"[train] summary {json.dumps(train)}")
+    city = phase_city(wa, entry, smi)
+    log(f"[city] summary {json.dumps(city)}")
 
     # the inputs SwinIR gives the kernel: strided views of its qkv projection
     plain, masked = rows["classical_qkv"], rows["classical_masked_qkv"]
@@ -750,6 +1126,9 @@ def main() -> int:
         "replaces": "srbh_tpu/ops/pallas/window_attention.py:48 (_attn_kernel)"
                     " and :70 (_attn_kernel_masked)",
         "launches": launches,
+        "launches_by_path": {"swinir_forward": launches,
+                             "train": train["launches"],
+                             "city": city["launches"]},
         "max_abs_err": max(r["max_abs_err"] for n, r in rows.items()
                            if "bf16" not in n),
         "max_abs_err_bf16": max(r["max_abs_err"] for n, r in rows.items()

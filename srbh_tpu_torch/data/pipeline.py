@@ -8,12 +8,13 @@ epoch (before the epoch's workers start, so each holds that epoch), and
 batches of stacked samples (the last one may be short). ``num_workers``
 processes load the samples. With ``device_put`` the batches are collated
 into pinned host tensors when ``device`` (``None`` is the card) is a card,
-and copied to it with ``non_blocking=True``. A worker's exception is raised
-again in the consumer.
+and copied to it with ``non_blocking=True``, but for ``path`` and the keys
+named in ``host_keys``, which stay on the host. A worker's exception is
+raised again in the consumer.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Sequence
 
 import numpy as np
 import torch
@@ -44,8 +45,10 @@ class DataLoader:
 
     def __init__(self, dataset, batch_size: int = 16, shuffle: bool = False,
                  num_workers: int = 4, seed: int = 1337,
-                 device_put: bool = False, device=None):
+                 device_put: bool = False, device=None,
+                 host_keys: Sequence[str] = ()):
         self.dataset = dataset
+        self.host_keys = ("path", *host_keys)
         self.device = resolve_device(device) if device_put else None
         self.epoch = 0
         self._order = _EpochOrder(len(dataset), shuffle, seed)
@@ -64,7 +67,7 @@ class DataLoader:
         self.epoch += 1
         for batch in self._loader:
             if self.device is not None:
-                batch = {k: v if k == "path" else
+                batch = {k: v if k in self.host_keys else
                          v.to(self.device, non_blocking=True)
                          for k, v in batch.items()}
             yield batch

@@ -8,17 +8,24 @@ only (the JAX package's C++ codec in ``srbh_tpu/native`` is not used):
   predictor; chunky and planar configs; windowed reads
   ``(xoff, yoff, xsize, ysize)`` that decode only the chunks they touch;
   windows crossing the right/bottom edge are zero-filled.
-* write: strip layout, chunky, None/PackBits/Deflate, and the GeoTIFF
-  geotransform (ModelPixelScale + ModelTiepoint, or ModelTransformation).
-  The JAX writer's colormap, nodata and GeoKey passthrough wait for the
-  city predictor, their only user.
+* metadata: :meth:`TiffReader.info` gives a :class:`TiffInfo` with the
+  GDAL nodata value, the colormap and the GeoKey payloads (directory,
+  doubles, ASCII) as little-endian bytes, for verbatim passthrough.
+* write: strip layout, chunky, None/PackBits/Deflate, the GeoTIFF
+  geotransform (ModelPixelScale + ModelTiepoint, or ModelTransformation),
+  a 256-entry RGBA colormap (photometric 3), GDAL nodata, and GeoKeys
+  carried from a source file (``like``) or given (``geo_keys``): the same
+  bytes as the JAX package's ``write_tiff`` for the same arguments.
 
-The file is read into memory whole (training tiles are small).
+The file is read into memory whole (a city raster is tens of MB; the
+predictor's loader processes share that copy until they write to it).
 """
 from __future__ import annotations
 
+import re
 import struct
 import zlib
+from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -26,9 +33,14 @@ import numpy as np
 # TIFF tag ids
 T_WIDTH, T_LENGTH, T_BITS, T_COMPRESSION, T_PHOTOMETRIC = 256, 257, 258, 259, 262
 T_STRIP_OFFSETS, T_SPP, T_ROWS_PER_STRIP, T_STRIP_COUNTS = 273, 277, 278, 279
-T_PLANAR, T_PREDICTOR, T_SAMPLE_FORMAT = 284, 317, 339
+T_PLANAR, T_PREDICTOR, T_COLORMAP, T_SAMPLE_FORMAT = 284, 317, 320, 339
 T_TILE_W, T_TILE_L, T_TILE_OFFSETS, T_TILE_COUNTS = 322, 323, 324, 325
 T_MODEL_PIXEL_SCALE, T_MODEL_TIEPOINT, T_MODEL_TRANSFORM = 33550, 33922, 34264
+T_GEO_KEYS, T_GEO_DOUBLES, T_GEO_ASCII = 34735, 34736, 34737
+T_GDAL_NODATA = 42113
+# a GDAL nodata string that reads as a float (anything else reads as None)
+_FLOAT = re.compile(r"\s*[+-]?(nan|inf(inity)?|(\d+\.?\d*|\.\d+)"
+                    r"(e[+-]?\d+)?)\s*", re.IGNORECASE)
 
 _TYPE_SIZES = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4, 10: 8,
                11: 4, 12: 8, 16: 8, 17: 8}
@@ -136,6 +148,22 @@ def _decompress(data: bytes, method: int, expected: int) -> bytes:
     raise ValueError(f"unsupported TIFF compression {method}")
 
 
+@dataclass
+class TiffInfo:
+    width: int
+    height: int
+    count: int  # bands
+    dtype: np.dtype
+    compression: int
+    geotransform: Tuple[float, float, float, float, float, float]
+    nodata: Optional[float] = None
+    colormap: Optional[Dict[int, Tuple[int, int, int, int]]] = None
+    # verbatim projection payloads (little-endian) for passthrough
+    geo_keys: Optional[bytes] = None
+    geo_doubles: Optional[bytes] = None
+    geo_ascii: Optional[bytes] = None
+
+
 class TiffReader:
     """Single-IFD TIFF reader with windowed access."""
 
@@ -228,6 +256,41 @@ class TiffReader:
             return (x - i * sx, sx, 0.0, y + j * sy, 0.0, -sy)
         return (0.0, 1.0, 0.0, 0.0, 0.0, -1.0)
 
+    @property
+    def nodata(self) -> Optional[float]:
+        if T_GDAL_NODATA not in self.tags:
+            return None
+        text = self._values(T_GDAL_NODATA).rstrip(b"\x00").decode(
+            "ascii", "replace")
+        return float(text) if _FLOAT.fullmatch(text) else None
+
+    def _geo(self, tag: int, itemsize: int) -> Optional[bytes]:
+        """A GeoKey payload as little-endian bytes: ``write_tiff`` writes
+        little-endian files, so a big-endian payload is swapped."""
+        if tag not in self.tags:
+            return None
+        raw = self.tags[tag][2]
+        if self._e == ">" and itemsize > 1:
+            kind = {2: "u2", 8: "f8"}[itemsize]
+            raw = np.frombuffer(raw[: len(raw) - len(raw) % itemsize],
+                                ">" + kind).astype("<" + kind).tobytes()
+        return raw
+
+    def info(self) -> TiffInfo:
+        cmap = None
+        if T_COLORMAP in self.tags:
+            v = self._values(T_COLORMAP)
+            n = len(v) // 3
+            cmap = {i: (v[i] >> 8, v[n + i] >> 8, v[2 * n + i] >> 8, 255)
+                    for i in range(n)}
+        return TiffInfo(
+            width=self.width, height=self.height, count=self.spp,
+            dtype=self.dtype, compression=self.compression,
+            geotransform=self.geotransform, nodata=self.nodata, colormap=cmap,
+            geo_keys=self._geo(T_GEO_KEYS, 2),
+            geo_doubles=self._geo(T_GEO_DOUBLES, 8),
+            geo_ascii=self._geo(T_GEO_ASCII, 1))
+
     def _decode_chunk(self, idx: int, shape: Tuple[int, ...]) -> np.ndarray:
         off, cnt = self.chunk_offsets[idx], self.chunk_counts[idx]
         n = int(np.prod(shape))
@@ -292,9 +355,18 @@ def _compress(data: bytes, method: Optional[str]) -> Tuple[bytes, int]:
 def write_tiff(path: str, array: np.ndarray,
                geotransform: Tuple[float, ...] = (0, 1, 0, 0, 0, -1),
                compress: Optional[str] = None,
-               rows_per_strip: int = 256) -> None:
+               colormap: Optional[Dict[int, Tuple[int, int, int, int]]] = None,
+               nodata: Optional[float] = None,
+               like: Optional[TiffInfo] = None,
+               rows_per_strip: int = 256,
+               geo_keys: Optional[bytes] = None) -> None:
     """Write an (H, W) or (H, W, C) array as a striped chunky GeoTIFF, the
-    same bytes as the JAX package's ``write_tiff`` for the same arguments."""
+    same bytes as the JAX package's ``write_tiff`` for the same arguments.
+
+    ``like`` carries a source file's GeoKeys, GeoKey doubles and ASCII
+    verbatim (the array2raster pattern, utils/preprocess.py:106-133);
+    ``geo_keys`` stamps a GeoKeyDirectory of its own and wins over
+    ``like``'s. ``colormap`` maps values to RGBA (photometric 3)."""
     if array.ndim == 2:
         array = array[..., None]
     h, w, c = array.shape
@@ -319,12 +391,18 @@ def write_tiff(path: str, array: np.ndarray,
     add(T_LENGTH, 4, h)
     add(T_BITS, 3, [dt.itemsize * 8] * c)
     add(T_COMPRESSION, 3, comp_id)
-    add(T_PHOTOMETRIC, 3, 2 if c >= 3 else 1)
+    add(T_PHOTOMETRIC, 3, 3 if colormap else (2 if c >= 3 else 1))
     add(T_SPP, 3, c)
     add(T_ROWS_PER_STRIP, 4, rows_per_strip)
     add(T_STRIP_COUNTS, 4, counts)
     add(T_PLANAR, 3, 1)
     add(T_SAMPLE_FORMAT, 3, [fmt_code] * c)
+    if colormap:
+        rgb = [[0] * (1 << (dt.itemsize * 8)) for _ in range(3)]
+        for k, colour in colormap.items():
+            for band, v in zip(rgb, colour[:3]):
+                band[k] = int(v) * 257
+        add(T_COLORMAP, 3, rgb[0] + rgb[1] + rgb[2])
     gt = geotransform
     if gt[2] == 0 and gt[4] == 0:
         add(T_MODEL_PIXEL_SCALE, 12, [gt[1], -gt[5], 0.0])
@@ -332,6 +410,18 @@ def write_tiff(path: str, array: np.ndarray,
     else:
         add(T_MODEL_TRANSFORM, 12, [gt[1], gt[2], 0, gt[0], gt[4], gt[5], 0,
                                     gt[3], 0, 0, 0, 0, 0, 0, 0, 1])
+    if geo_keys is not None:
+        entries.append((T_GEO_KEYS, 3, len(geo_keys) // 2, geo_keys))
+    elif like is not None and like.geo_keys:
+        entries.append((T_GEO_KEYS, 3, len(like.geo_keys) // 2, like.geo_keys))
+    if like is not None and like.geo_doubles:
+        entries.append((T_GEO_DOUBLES, 12, len(like.geo_doubles) // 8,
+                        like.geo_doubles))
+    if like is not None and like.geo_ascii:
+        entries.append((T_GEO_ASCII, 2, len(like.geo_ascii), like.geo_ascii))
+    if nodata is not None:
+        text = repr(nodata).encode() + b"\x00"
+        entries.append((T_GDAL_NODATA, 2, len(text), text))
 
     # layout: header (8) + IFD + out-of-line payloads + strip data
     n_entries = len(entries) + 1  # + strip offsets

@@ -38,7 +38,11 @@ def test_port_has_the_slice_modules():
                  "ops.normalize", "data.tiff", "data.augment", "data.dataset",
                  "data.pipeline", "metrics.streaming", "train.schedule",
                  "train.state", "train.steps", "train.config",
-                 "train.checkpoint", "train.trainer", "train.__main__"):
+                 "train.checkpoint", "train.trainer", "train.__main__",
+                 "data.shapefile", "data.grid", "predict.colormap",
+                 "predict.writers", "predict.stitcher",
+                 "predict.device_stitcher", "predict.sliding",
+                 "predict.__main__"):
         assert f"srbh_tpu_torch.{name}" in mods
 
 
@@ -69,7 +73,13 @@ def test_port_has_no_try_statements():
 def _entry_points():
     from srbh_tpu_torch import entry
     from srbh_tpu_torch.data.pipeline import DataLoader
-    from srbh_tpu_torch.predict.predictor import make_city_step
+    from srbh_tpu_torch.predict import __main__ as predict_cli
+    from srbh_tpu_torch.predict.device_stitcher import DeviceMosaicAccumulator
+    from srbh_tpu_torch.predict.predictor import (
+        make_city_step,
+        predict_cities,
+        predict_city,
+    )
     from srbh_tpu_torch.tools import swinir_harness
     from srbh_tpu_torch.train import trainer
     from srbh_tpu_torch.train.config import TrainConfig
@@ -84,12 +94,19 @@ def _entry_points():
         "trainer.main": lambda: trainer.main(TrainConfig()),
         "make_train_step": lambda: make_train_step(torch.nn.Identity(), None),
         "DataLoader": lambda: DataLoader([], device_put=True),
+        "predict_city": lambda: predict_city(None, None, "", "city"),
+        "predict_cities": lambda: predict_cities("", [], None, None, "", ""),
+        "DeviceMosaicAccumulator": lambda: DeviceMosaicAccumulator(4, 4, 7),
+        "predict.__main__.main": lambda: predict_cli.main([]),
     }
 
 
 @pytest.mark.parametrize("name", ["flagship", "entry", "make_city_step",
                                   "define_model", "trainer.main",
-                                  "make_train_step", "DataLoader"])
+                                  "make_train_step", "DataLoader",
+                                  "predict_city", "predict_cities",
+                                  "DeviceMosaicAccumulator",
+                                  "predict.__main__.main"])
 def test_entry_points_need_a_card_by_default(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -17,12 +17,14 @@ frameworks are compared: their random bits differ.
     with the log-vars, against ``TrainState.apply_gradients``: within 1e-6;
     and Adam's moments carried across by ``convert.train_state_from_jax``.
 (c) Three whole steps against ``make_train_step``: loss, rmse and log-vars
-    within 1e-3 relative per step; parameters by the sign-flip fractions of
-    ``tests/test_train_step_oracle.py`` (< 0.5 % beyond 1e-4 after step 1,
-    < 0.1 % beyond 2.5e-3 after step 3). Adam's first update is +-lr
-    whatever the gradient's size, so an element whose gradient is near zero
-    may move either way in the two frameworks; step-3 BatchNorm statistics
-    compound such flips and are not compared element by element.
+    within 1e-3 relative per step; parameters by sign flips: none beyond
+    1e-4 after step 1 (2.5e-3 after steps 2 and 3) where JAX's step-1
+    gradient stands clear of the measured float32 noise, and the share of
+    all elements beyond those thresholds bounded (see the test). Adam's
+    first update is +-lr whatever the gradient's size, so an element whose
+    gradient is near zero may move either way in the two frameworks; step-3
+    BatchNorm statistics compound such flips and are not compared element by
+    element.
 (d) ``make_eval_step`` and ``make_predict_step`` within 1e-5.
 (e) Drop-connect: per-block rates, survivors scaled by exactly 1/keep, the
     drop rate within 3 sigma, the identity in eval mode, seeded draws.
@@ -166,31 +168,39 @@ def _port_grads(variables, b, fea_nhwc, lv0, train, dtype=torch.float32):
     return loss.item(), log_vars.grad.double().numpy(), grads, model.state_dict()
 
 
-def _jax_grads(setup, lv0, train):
+def _jax_grads(setup, lv0, train, isaggre=True):
     """(loss, log_var grads, parameter grads under the port's names, updated
-    batch_stats) of the same forward through ``jax.value_and_grad``."""
-    variables, b = setup[True], setup["batch"]
-    jm = _jax_model()
+    batch_stats) of the same forward through ``jax.value_and_grad``; with
+    ``isaggre=False`` the two-head model of the plain epoch, on ``batch2``
+    with its unweighted losses (as ``make_train_step``)."""
+    variables = setup[isaggre]
+    b = setup["batch"] if isaggre else setup["batch2"]
+    jm = _jax_model(isaggre)
     bj = {k: jnp.asarray(v) for k, v in b.items()}
 
     def loss_fn(params, log_vars):
-        (h, bl, a), mutated = jm.apply(
+        outs, mutated = jm.apply(
             {"params": params, "batch_stats": variables["batch_stats"]},
             bj["image"], jnp.asarray(setup["fea"]), train=train,
             mutable=["batch_stats"])
-        loss = (JL.mse_adapt_weight(h[..., 0], bj["height"], bj["weight"],
-                                    log_vars[0])
-                + JL.mse_adapt_weight(a[..., 0], bj["height_aggre"],
-                                      bj["weight_aggre"], log_vars[1])
-                + JL.ce_dice_adapt_weight(bl, bj["build"], bj["weight"],
-                                          log_vars[2]))
+        if isaggre:
+            h, bl, a = outs
+            loss = (JL.mse_adapt_weight(h[..., 0], bj["height"], bj["weight"],
+                                        log_vars[0])
+                    + JL.mse_adapt_weight(a[..., 0], bj["height_aggre"],
+                                          bj["weight_aggre"], log_vars[1])
+                    + JL.ce_dice_adapt_weight(bl, bj["build"], bj["weight"],
+                                              log_vars[2]))
+        else:
+            loss = (JL.mse_adapt(outs[0][..., 0], bj["height"], log_vars[0])
+                    + JL.ce_dice_adapt(outs[1], bj["build"], log_vars[1]))
         return loss, mutated["batch_stats"]
 
     (loss, stats), (g_p, g_lv) = jax.jit(jax.value_and_grad(
         loss_fn, argnums=(0, 1), has_aux=True))(variables["params"],
                                                 jnp.asarray(lv0))
     return (float(loss), np.asarray(g_lv),
-            _names(jax.device_get(g_p), variables["batch_stats"]),
+            _names(jax.device_get(g_p), variables["batch_stats"], isaggre),
             jax.device_get(stats))
 
 
@@ -310,29 +320,53 @@ def test_optimizer_matches_jax_apply_gradients(setup):
                                np.asarray(jstate.log_vars), atol=1e-6)
 
 
-def _sign_flip_fraction(got, want, thresh):
-    bad = total = 0
-    for name, w in want.items():
-        d = np.abs(got[name].astype(np.float64) - w.astype(np.float64))
-        bad += int((d > thresh).sum())
-        total += d.size
-    return bad / total
+def _differ(got, want, thresh):
+    """Per tensor, the elements more than ``thresh`` apart."""
+    return {name: np.abs(got[name].astype(np.float64)
+                         - w.astype(np.float64)) > thresh
+            for name, w in want.items()}
+
+
+# Largest float32 error of a training gradient, per tensor, as a share of the
+# tensor's max |g| (against the port's float64 gradient, torch at 1, 2, 4 and
+# 8 threads on the CPU): JAX's plus the port's, rounded up. The plain
+# epoch's two-head model is ten times worse conditioned (JAX's float32
+# gradient lies 1.1e-2 from float64 in relative L2, the aggregated model's
+# 2.4e-4).
+F32_GRAD_NOISE = {True: 0.02, False: 0.2}
+# the share of all parameter elements beyond the thresholds: the worst value
+# measured at those thread counts (and under pytest-xdist) times two at least
+STEP1_SHARE, LATER_SHARE = 0.013, 0.003
 
 
 @pytest.mark.parametrize("isaggre", [True, False])
 def test_three_steps_match_jax_make_train_step(setup, isaggre):
+    """Three whole steps against JAX's. Adam's first update is +-lr whatever
+    the gradient's size, so a gradient near 0 whose sign differs between
+    the two frameworks' float32 rounding gives a 2 x lr difference that is
+    no fault of the port. A difference is a fault where JAX's step-1
+    gradient stands clear of float32 noise: above twice
+    ``F32_GRAD_NOISE`` x its tensor's max |g| (plus 1e-6 x the model's
+    largest gradient, for tensors whose true gradient is 0). None may differ
+    there, after step 1 by more than 1e-4 and after steps 2 and 3 by more
+    than 2.5e-3; the share of all elements beyond those thresholds is
+    printed and bounded."""
     variables = setup[isaggre]
     b = setup["batch"] if isaggre else setup["batch2"]
     n_lv = 3 if isaggre else 2
     jstate = JaxState.create(variables, n_log_vars=n_lv, lr=1e-3,
                              weight_decay=1e-4, log_var_lr=1e-3)
+    *_, grads, _ = _jax_grads(setup, np.zeros(n_lv, np.float32), True, isaggre)
+    floor = 1e-6 * max(np.abs(g).max() for g in grads.values())
+    clear = {name: np.abs(g) > 2 * F32_GRAD_NOISE[isaggre] * np.abs(g).max()
+             + floor for name, g in grads.items()}
     jstep = jax_train_step(_jax_model(isaggre), FixedFeatureJax(setup["fea"]),
                            isaggre=isaggre, seed=0)
     state = TrainState(_port_model(variables, isaggre), n_log_vars=n_lv)
     step = make_train_step(state.model, FixedFeature(setup["fea"]),
                            isaggre=isaggre, seed=0, device="cpu")
     bj = {k: jnp.asarray(v) for k, v in b.items()}
-    fracs = []
+    total = sum(g.size for g in grads.values())
     for i, lr in enumerate(LRS):
         jstate, jm = jstep(jstate, {}, bj, jnp.float32(lr))
         m = step(state, b, lr)
@@ -345,9 +379,16 @@ def test_three_steps_match_jax_make_train_step(setup, isaggre):
         want = _names(jax.device_get(jstate.params), variables["batch_stats"],
                       isaggre)
         got = {n: p.detach().numpy() for n, p in state.model.named_parameters()}
-        fracs.append(_sign_flip_fraction(got, want, 1e-4 if i == 0 else 2.5e-3))
-    assert fracs[0] < 0.005, f"{fracs[0]:.4%} of step-1 params beyond 1e-4"
-    assert fracs[2] < 0.001, f"{fracs[2]:.4%} of step-3 params beyond 2.5e-3"
+        thresh, bound = (1e-4, STEP1_SHARE) if i == 0 else (2.5e-3, LATER_SHARE)
+        differ = _differ(got, want, thresh)
+        share = sum(int(d.sum()) for d in differ.values()) / total
+        print(f"step {i + 1}: {share:.4%} of params beyond {thresh:g} "
+              f"(bound {bound:.2%})")
+        faults = {n: int((d & clear[n]).sum()) for n, d in differ.items()}
+        assert not any(faults.values()), \
+            f"step {i + 1}: {sum(faults.values())} clear-gradient elements " \
+            f"beyond {thresh:g}: {[n for n, k in faults.items() if k][:5]}"
+        assert share < bound, f"step {i + 1}: {share:.4%} beyond {thresh:g}"
     assert state.step == 3
 
 
