@@ -6,7 +6,7 @@
 Runs from the root of the repository on a machine with one NVIDIA H100 and
 the CUDA toolkit (``nvcc``). It builds the Hopper window-attention kernel
 from ``srbh_tpu_torch/csrc/``, then drives the port's two serving paths and
-its training path:
+its two training paths:
 
 1. the card: name, count, ``nvidia-smi`` name and power limit;
 2. the kernel build, with ``-Xptxas -v`` (registers, shared memory, spills;
@@ -35,17 +35,22 @@ its training path:
    the memory allocated when the phase starts);
 6. the height model's training path: one ``make_train_step`` of the tiny
    configuration on the card against the CPU (loss, rmse and log-vars
-   within 1e-4 x (1 + |b|), parameters by their sign-flip fraction); then
+   within 1e-4 x (1 + |b|); gradients against float64, and parameters
+   wherever the float64 gradient stands clear of float32 noise), and
+   the same with the augmentation and normalisation in the step
+   (``device_aug``, ``norm``: both devices fed one set of draws); then
    ``train.trainer.main``, the entry point of ``python -m
    srbh_tpu_torch.train``, at full width (RRDBNet-23 + EfficientNet-B4,
    batch 16 tiles of 64x64, float32) on 64 synthetic GeoTIFF tiles for one
    epoch of 4 steps and a resumed second epoch: finite losses, moved
    log-vars, every height-model parameter and some BatchNorm statistics
    changed, the frozen RRDBNet bit-unchanged, the checkpoint reloading to an
-   identical state; the launches of the hand kernel on that path (none);
-   train tiles/s of ``make_train_step`` alone on batches already on the
-   card in float32 and bfloat16, with peak memory and a ``profile`` line
-   each; and the trainer's time per step with its loader in steady state
+   identical state; ``trainer.main`` with ``--device_norm`` for 4 steps;
+   the launches of the hand kernel on both (none); train tiles/s of
+   ``make_train_step`` alone on batches already on the card in float32 and
+   bfloat16, and in float32 with ``device_aug`` and with ``norm`` too, with
+   peak memory and a ``profile`` line each; and the trainer's time per step
+   with its loader in steady state
    (512 tiles, the prefetch fill left out), beside the loader alone and
    the time to the first batch;
 7. the city predictor: ``predict_city`` of the tiny configuration on the
@@ -62,7 +67,24 @@ its training path:
    windows/s end to end by stitcher, of the step alone and of the loader
    alone, ms per batch of each stitcher's ``add_batch``, seconds of
    finalize and GeoTIFF writes, device and host peak memory, and a
-   ``profile`` line of the device-stitch run.
+   ``profile`` line of the device-stitch run;
+8. the Real-ESRGAN GAN: two steps of the tiny configuration (VGG19
+   perceptual on) on the card against the CPU (metrics within
+   1e-4 x (1 + |b|), spectral norms' u and sigma 1e-5, EMA 1e-6); then the
+   recipe's full width (RRDBNet-23 nf 64 gc 32, UNetDiscriminatorSN nf 64,
+   VGG19, batch 12, lq 64 -> gt 256, float32) through ``train_sr`` on 72
+   synthetic LR / HR GeoTIFF pairs (6 steps, 4 loader processes): finite
+   losses, every G and D parameter and every norm's u moved, the EMA apart
+   from G, ``net_g`` / ``net_d`` reloading identically (``load_sr_generator``);
+   ``eval_sr`` of 12 pairs writing ``acc1.txt``; the hand kernel's launches
+   over both (none); ms per step of ``train_sr`` in steady state (host
+   stamps as its steps return), eval images/s, and the GAN step alone on
+   batches on the card in bfloat16 and float32 (tiles/s, peak memory, a
+   ``profile`` of one step by kernel each, and by aten op with its shapes
+   in float32);
+   then the float32 step again with cuDNN's autotuning on
+   (``torch.backends.cudnn.benchmark``), in a process of its own
+   (``python3 chip_smoke.py --gan-autotuned`` runs just that).
 
 TF32 is off for the whole run (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32`` are False), so float32 means
@@ -78,6 +100,7 @@ line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import os
 import subprocess
@@ -97,9 +120,10 @@ ATTN_TOL_BF16 = 3.2e-2  # two bf16 ulps at |o| < 4: the kernel keeps p in f32
 SWIN_TOL = 1e-4  # whole model, relative to max(1, max |out|): f32, 36 blocks
 FLAGSHIP_TOL = 1e-4  # whole model: |a - b| <= tol * (1 + |b|), card vs CPU, f32
 TRAIN_TOL = 1e-4  # train step: loss, rmse, log-vars |a - b| <= tol * (1 + |b|)
-# params after one Adam step (every update is +-lr): share of elements that
-# differ by more than 1e-4 card vs CPU, as tests/test_train_step_oracle.py
-TRAIN_FLIP_SHARE = 0.005
+# the card's float32 train-step gradient against float64: within this share
+# of its tensor's largest gradient plus this share of the model's largest (a
+# fault of the backward gives errors of the gradient's own size)
+TRAIN_GRAD_TOL = (0.1, 1e-4)
 TRAIN_BATCH, TRAIN_TILES, TRAIN_STEPS = 16, 64, 4
 LOOP_TILES = 512  # the steady-state loader timing: 32 batches of 16
 TIMED_STEPS = 6
@@ -178,12 +202,14 @@ def off_pair(t):
     return flat[1:].view(t.shape).copy_(t)
 
 
-def profile(label, fn, warm=True, host_ops=True):
+def profile(label, fn, warm=True, host_ops=True, by_op=False):
     """Device time by kernel for one call of ``fn`` (torch.profiler), and the
     device's idle share of the call's wall time, after one call unprofiled
     if ``warm``. ``host_ops=False`` traces the device only (a long call's
-    host ops take the profiler minutes to sort). Returns (ms, kernel name)
-    rows, empty if the profiler saw no device time."""
+    host ops take the profiler minutes to sort). ``by_op`` also prints the
+    aten ops with the most device time of their own, by input shapes.
+    Returns (ms, kernel name) rows, empty if the profiler saw no device
+    time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -191,8 +217,8 @@ def profile(label, fn, warm=True, host_ops=True):
     if warm:
         fn()
     torch.cuda.synchronize()
-    activities = [ProfilerActivity.CUDA] + [ProfilerActivity.CPU] * host_ops
-    with torch_profile(activities=activities) as prof:
+    activities = [ProfilerActivity.CUDA] + [ProfilerActivity.CPU] * (host_ops or by_op)
+    with torch_profile(activities=activities, record_shapes=by_op) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -208,14 +234,27 @@ def profile(label, fn, warm=True, host_ops=True):
         f"busy {busy:.3f} ms, idle share {max(0.0, 1 - busy / wall_ms):.3f}")
     for ms, key in rows[:8]:
         log(f"[profile]   {ms:9.3f} ms {100 * ms / busy:5.1f}%  {key[:90]}")
+    if by_op:
+        ops = sorted(((e.self_device_time_total / 1e3, e) for e in
+                      prof.key_averages(group_by_input_shape=True)
+                      if e.key.startswith("aten::") and e.self_device_time_total > 0),
+                     key=lambda r: -r[0])
+        for ms, e in ops[:8]:
+            log(f"[profile]   op {ms:9.3f} ms {100 * ms / busy:5.1f}%  {e.key} "
+                f"x{e.count} {str(e.input_shapes)[:150]}")
     return rows
+
+
+def nvidia_smi():
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
 def phase_device():
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    smi = nvidia_smi()
     log(f"[device] {name} count={torch.cuda.device_count()} "
         f"torch={torch.__version__} cuda={torch.version.cuda}")
     log(f"[device] nvidia-smi: {smi}")
@@ -517,42 +556,155 @@ def write_tiles(root, n):
     np.savetxt(os.path.join(root, "bh_stats.txt"), hist)
 
 
-def train_tiny_card_vs_cpu():
+def keep_step_grads(state):
+    """Have ``state`` keep, on the host, each parameter's gradient as its
+    step hands it to Adam; returns the dict it fills."""
+    grads, apply = {}, state.apply_gradients
+
+    def keep(lr):
+        grads.update({n: p.grad.detach().cpu().double()
+                      for n, p in state.model.named_parameters()})
+        return apply(lr)
+
+    state.apply_gradients = keep
+    return grads
+
+
+def loss_grads_f64(model, sr, b):
+    """The gradient of the train step's loss (aggre + weight losses, log-vars
+    0) at the step's starting weights on the batch the model trained on,
+    in float64 on the CPU."""
+    from srbh_tpu_torch.losses.adaptive import ce_dice_adapt_weight, mse_adapt_weight
+
+    m, s = copy.deepcopy(model).double().train(), copy.deepcopy(sr).double().eval()
+    t = {k: torch.as_tensor(v).cpu() for k, v in b.items()}
+    t = {k: v.double() if v.is_floating_point() else v for k, v in t.items()}
+    image = t["image"].permute(0, 3, 1, 2)
+    with torch.no_grad():
+        fea = s(image[:, :3], features_only=True)
+    h, bl, a = m(image, fea)
+    lv = torch.zeros(3, dtype=torch.float64)
+    loss = (mse_adapt_weight(h[:, 0], t["height"], t["weight"], lv[0])
+            + mse_adapt_weight(a[:, 0], t["height_aggre"], t["weight_aggre"], lv[1])
+            + ce_dice_adapt_weight(bl, t["build"], t["weight"], lv[2]))
+    loss.backward()
+    return {n: p.grad for n, p in m.named_parameters()}
+
+
+def train_tiny_card_vs_cpu(label="make_train_step", batch=None, **step_kw):
     """One train step of the tiny configuration on the card and on the CPU
-    from the same weights and batch, drop-connect off."""
+    from the same weights and batch, drop-connect off. Losses within
+    ``TRAIN_TOL``. Parameters by the gradient-noise rule of
+    tests/test_torch_train_step.py: Adam's first update is +-lr whatever the
+    gradient's size, so an element whose gradient lies within float32
+    rounding of 0 may move either way on the two devices. A difference
+    beyond 1e-4 is a fault where the float64 gradient stands clear of twice
+    the float32 error of the two devices' own gradients (the largest in its
+    tensor) plus 1e-6 x the model's largest gradient. So that no fault of
+    the card's backward widens the noise that would hide it, the card's
+    gradient must lie within ``TRAIN_GRAD_TOL`` of float64: a share of its
+    tensor's largest gradient plus a share of the model's."""
     from srbh_tpu_torch.models.height_model import SRRegressClsFeature
     from srbh_tpu_torch.models.layers import init_weights
     from srbh_tpu_torch.models.rrdbnet import RRDBNet
+    from srbh_tpu_torch.train import steps
     from srbh_tpu_torch.train.state import TrainState
-    from srbh_tpu_torch.train.steps import make_train_step
 
     gen = torch.Generator().manual_seed(0)
     sr = init_weights(RRDBNet(num_block=2, num_feat=16, num_grow_ch=8), gen)
     model = init_weights(SRRegressClsFeature(
         "efficientnet-test", super_mid=8, isaggre=True, chans_build=7,
         sr_chans=16, drop_connect_rate=0.0), gen)
-    batch = train_batch(np.random.default_rng(4), 4)
+    batch = train_batch(np.random.default_rng(4), 4) if batch is None else batch
+    trained_on, augment = dict(batch), steps._augment
+
+    def keep_augmented(*args):  # the batch the CPU's step trains on
+        trained_on.update(augment(*args))
+        return trained_on
+
     out = {}
     for dev in ("cpu", "cuda"):
         m, s = copy.deepcopy(model).to(dev), copy.deepcopy(sr).to(dev)
         state = TrainState(m)
-        metrics = make_train_step(m, s, device=dev)(state, batch, 1e-3)
+        grads = keep_step_grads(state)
+        steps._augment = keep_augmented if dev == "cpu" else augment
+        metrics = steps.make_train_step(m, s, device=dev, **step_kw)(state, batch, 1e-3)
         out[dev] = ({k: v.cpu() for k, v in metrics.items()},
-                    {n: p.detach().cpu() for n, p in m.named_parameters()})
-    (want, p_cpu), (got, p_card) = out["cpu"], out["cuda"]
+                    {n: p.detach().cpu() for n, p in m.named_parameters()}, grads)
+    steps._augment = augment
+    (want, p_cpu, g_cpu), (got, p_card, g_card) = out["cpu"], out["cuda"]
     for key in ("loss", "rmse", "log_vars"):
         err = ((got[key] - want[key]).abs() / (1 + want[key].abs())).max().item()
-        log(f"[train] tiny make_train_step {key} card vs CPU: max "
+        log(f"[train] tiny {label} {key} card vs CPU: max "
             f"|a-b|/(1+|b|)={err:.3e} (tol {TRAIN_TOL:.0e})")
         if not err <= TRAIN_TOL:
-            raise AssertionError(f"tiny train step {key} disagrees card vs CPU")
-    bad = sum(int(((p_card[n] - p).abs() > 1e-4).sum()) for n, p in p_cpu.items())
+            raise AssertionError(f"tiny {label} {key} disagrees card vs CPU")
+    g64 = loss_grads_f64(model, sr, trained_on)
+    scale = max(g.abs().max().item() for g in g64.values())
+    rel, absolute = TRAIN_GRAD_TOL
+    bad = faults = clear_total = 0
+    worst = dict(cpu=0.0, card=0.0)
+    off = []
+    for n, g in g64.items():
+        top = g.abs().max().item()
+        e_cpu = (g_cpu[n] - g).abs().max().item()
+        e_card = (g_card[n] - g).abs().max().item()
+        for dev, e in (("cpu", e_cpu), ("card", e_card)):
+            worst[dev] = max(worst[dev], e / (rel * top + absolute * scale))
+        if e_card > rel * top + absolute * scale:
+            off.append(n)
+        clear = g.abs() > 2 * max(e_cpu, e_card) + 1e-6 * scale
+        differ = (p_card[n] - p_cpu[n]).abs() > 1e-4
+        bad += int(differ.sum())
+        faults += int((differ & clear).sum())
+        clear_total += int(clear.sum())
     total = sum(p.numel() for p in p_cpu.values())
-    log(f"[train] tiny make_train_step params card vs CPU: {bad} of {total} "
-        f"elements beyond 1e-4 (share {bad / total:.2e}, limit "
-        f"{TRAIN_FLIP_SHARE})")
-    if not bad / total < TRAIN_FLIP_SHARE:
-        raise AssertionError("tiny train step params disagree card vs CPU")
+    log(f"[train] tiny {label} float32 gradients against float64: the largest "
+        f"error as a share of its limit ({rel:g} x the tensor's max |g| + "
+        f"{absolute:g} x the model's, {scale:.3e}): CPU {worst['cpu']:.3e}, "
+        f"card {worst['card']:.3e}; card tensors beyond: {len(off)}")
+    log(f"[train] tiny {label} params card vs CPU: {bad} of {total} elements "
+        f"beyond 1e-4 (share {bad / total:.2e}); of the {clear_total} whose "
+        f"float64 gradient stands clear of float32 noise, {faults} beyond")
+    if off or faults:
+        raise AssertionError(f"tiny {label} disagrees card vs CPU: gradients "
+                             f"{off[:5]}, {faults} clear-gradient params")
+
+
+def raw_batch(rng, n, tile=64):
+    """One host batch of the device-norm step: raw S2 DNs (uint16), S1,
+    the height raster (uint8)."""
+    return {"s2": rng.integers(0, 5000, (n, tile, tile, 6)).astype(np.uint16),
+            "s1": rng.uniform(-25, 5, (n, tile, tile, 2)).astype(np.float32),
+            "height": rng.integers(0, 100, (n, 4 * tile, 4 * tile)).astype(np.uint8)}
+
+
+# the step's normalisation tables (a narrow S2 range, so clipping matters)
+NORM = {"s2_off": np.full(6, 1000.0), "s2_scale": np.full(6, 3000.0),
+        "s1_off": np.full(2, -25.0), "s1_scale": np.full(2, 30.0)}
+
+
+def device_aug_tiny_card_vs_cpu():
+    """The tiny step with in-step augmentation and normalisation, card
+    against CPU. The two devices' generators draw differently, so both
+    steps take one set of draws made on the CPU (the step's
+    ``draw_augment`` is swapped for the run)."""
+    from srbh_tpu_torch.ops.device_aug import draw_augment
+    from srbh_tpu_torch.train import steps
+
+    draws = draw_augment(4, torch.Generator().manual_seed(11))
+    # each transform fires on some samples and not on others
+    draws["flip"] = torch.tensor([True, False, True, False])
+    draws["shuffle"] = torch.tensor([True, True, False, False])
+    draws["rotate"] = torch.tensor([True, False, False, True])
+    log(f"[train] device-aug draws: flip {draws['flip'].tolist()}, shuffle "
+        f"{draws['shuffle'].tolist()}, rotate {draws['rotate'].tolist()}, angles "
+        f"{[round(a, 2) for a in draws['angle'].tolist()]}")
+    steps.draw_augment = lambda n, gen: {k: v.to(gen.device) for k, v in draws.items()}
+    train_tiny_card_vs_cpu("make_train_step(device_aug, norm)",
+                           raw_batch(np.random.default_rng(12), 4),
+                           device_aug=True, norm=NORM)
+    steps.draw_augment = draw_augment
 
 
 def check_trained(state, init_model, init_sr, scalars):
@@ -610,22 +762,30 @@ def check_checkpoint(cfg, state):
 
 
 def time_steps(cfg, smi):
-    """tiles/s of ``make_train_step`` alone on batches already on the card,
-    float32 and bfloat16, with peak memory and a profile of one step."""
+    """tiles/s of ``make_train_step`` alone on batches already on the card:
+    float32 and bfloat16 with host-augmented batches, then float32 with the
+    augmentation (``device_aug``) and also the normalisation (``norm``) in
+    the step; peak memory and a profile of one step each."""
     from srbh_tpu_torch.train.state import TrainState
     from srbh_tpu_torch.train.steps import make_train_step
     from srbh_tpu_torch.train.trainer import build_models
 
     rng = np.random.default_rng(5)
-    batches = [{k: torch.as_tensor(v, device="cuda") for k, v in
-                train_batch(rng, TRAIN_BATCH).items()} for _ in range(2)]
+    on_card = lambda b: {k: torch.as_tensor(v, device="cuda") for k, v in b.items()}
+    host = [on_card(train_batch(rng, TRAIN_BATCH)) for _ in range(2)]
+    aug = [{"image": b["image"], "height": b["height"].to(torch.uint8)} for b in host]
+    raw = [on_card(raw_batch(rng, TRAIN_BATCH)) for _ in range(2)]
+    modes = [("float32", torch.float32, {}, host),
+             ("bfloat16", torch.bfloat16, {}, host),
+             ("float32 device_aug", torch.float32, dict(device_aug=True), aug),
+             ("float32 device_aug + norm", torch.float32,
+              dict(device_aug=True, norm=NORM), raw)]
     results = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        name = str(dtype)[6:]
+    for name, dtype, kw, batches in modes:
         model, sr = build_models(cfg)
         state = TrainState(model.to("cuda"))
         step = make_train_step(model, sr, seed=cfg.seed, dtype=dtype,
-                               device="cuda")
+                               device="cuda", **kw)
         for i in range(2):
             step(state, batches[i % 2], 1e-3)
         torch.cuda.synchronize()
@@ -637,11 +797,12 @@ def time_steps(cfg, smi):
         dt = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() / 2**30
         tps = TRAIN_BATCH * TIMED_STEPS / dt
-        if not torch.isfinite(m["loss"]):
+        if not (torch.isfinite(m["loss"]) and torch.isfinite(m["rmse"])):
             raise AssertionError(f"train step {name} loss not finite")
         log(f"[train] make_train_step {name}, batch {TRAIN_BATCH}, batches on "
             f"the card: {tps:.2f} tiles/s ({1e3 * dt / TIMED_STEPS:.2f} ms per "
-            f"step over {TIMED_STEPS} steps), peak {peak:.2f} GiB; {smi}")
+            f"step over {TIMED_STEPS} steps), loss {m['loss'].item():.4f}, peak "
+            f"{peak:.2f} GiB; {smi}")
         results[name] = dict(tiles_per_s=tps, ms_per_step=1e3 * dt / TIMED_STEPS,
                              peak_gib=peak)
         profile(f"train step {name}, batch {TRAIN_BATCH}",
@@ -705,6 +866,7 @@ def phase_train(wa, smi):
     log(f"[train] memory allocated at the start: "
         f"{torch.cuda.memory_allocated() / 2**20:.1f} MiB")
     train_tiny_card_vs_cpu()
+    device_aug_tiny_card_vs_cpu()
     with tempfile.TemporaryDirectory() as root:
         write_tiles(root, TRAIN_TILES)
         cfg = TrainConfig(
@@ -741,9 +903,29 @@ def phase_train(wa, smi):
         check_trained(resumed, init_model, init_sr, record.scalars)
         del state, resumed
         torch.cuda.empty_cache()
+        # python -m srbh_tpu_torch.train --device_norm true: normalisation,
+        # augmentation and targets in the step
+        cfg_norm = dataclasses.replace(cfg, device_norm=True, maxepoch=1,
+                                       logdir=os.path.join(root, "logs_norm"))
+        wa.window_attention.launches = 0
+        record = ScalarLog()
+        t0 = time.perf_counter()
+        normed = train_main(cfg_norm, writer=record,
+                            max_steps_per_epoch=TRAIN_STEPS, device="cuda")
+        torch.cuda.synchronize()
+        aug_launches = wa.window_attention.launches
+        log(f"[train] trainer.main --device_norm, {TRAIN_STEPS} steps + "
+            f"validation + checkpoint: {time.perf_counter() - t0:.2f} s wall; "
+            f"window_attention launches: {aug_launches}")
+        if normed.step != TRAIN_STEPS:
+            raise AssertionError(f"--device_norm trainer took {normed.step} steps")
+        check_trained(normed, init_model, init_sr, record.scalars)
+        del normed
+        torch.cuda.empty_cache()
         loop = time_loader(cfg, smi)
     steps = time_steps(cfg, smi)
-    return {"launches": launches, "steps": steps, "loop_ms": loop}
+    return {"launches": launches, "device_aug_launches": aug_launches,
+            "steps": steps, "loop_ms": loop}
 
 
 def write_city(root, name, side_w, side_h, seed):
@@ -1094,18 +1276,319 @@ def phase_city(wa, entry, smi):
     return {"launches": launches, **timed}
 
 
-def main() -> int:
+GAN_BATCH, GAN_LQ, GAN_PAIRS, GAN_EVAL_PAIRS, GAN_TIMED = 12, 64, 72, 12, 4
+AUTOTUNED_ARG = "--gan-autotuned"  # the float32 GAN step with cudnn.benchmark
+# the GAN step card vs CPU: the tolerances of tests/test_torch_gan_step.py
+GAN_TOL, GAN_SN_TOL, GAN_EMA_TOL = 1e-4, 1e-5, 1e-6
+# G and D parameters beyond 1e-4 per step card vs CPU: share of elements
+GAN_PARAM_SHARE = 0.005
+
+
+def write_pairs(root, n):
+    """``n`` synthetic SR pairs with the port's writer: LR Sentinel-2 RGB
+    uint16 (64, 64, 3), HR GoogleEarth uint8 (256, 256, 3), a list and the
+    LR min-max table (the HR side takes the (0, 255) default)."""
+    from srbh_tpu_torch.data.tiff import write_tiff
+
+    rng = np.random.default_rng(8)
+    for d in ("s2p", "gep"):
+        os.makedirs(os.path.join(root, d))
+    names = [f"p_{i}.tif" for i in range(n)]
+    yy, xx = np.mgrid[:4 * GAN_LQ, :4 * GAN_LQ]
+    for i, name in enumerate(names):
+        # smooth HR content with edges (so USM has something to sharpen),
+        # the LR its 4x block mean in DNs
+        hr = np.stack([128 + 100 * np.sin((xx + 7 * i) / (9.0 + c)) *
+                       np.cos(yy / (13.0 + i % 5)) for c in range(3)], -1)
+        hr = np.clip(hr + rng.normal(0, 6, hr.shape), 0, 255).astype(np.uint8)
+        lr = hr.reshape(GAN_LQ, 4, GAN_LQ, 4, 3).mean((1, 3)) * 10
+        write_tiff(os.path.join(root, "s2p", name), lr.astype(np.uint16),
+                   (500000.0, 10.0, 0.0, 4649776.0, 0.0, -10.0))
+        write_tiff(os.path.join(root, "gep", name), hr,
+                   (500000.0, 2.5, 0.0, 4649776.0, 0.0, -2.5))
+    for listname, rows in (("train.csv", names), ("eval.csv", names[:GAN_EVAL_PAIRS])):
+        with open(os.path.join(root, listname), "w") as f:
+            f.writelines(f"{name}\n" for name in rows)
+    np.savetxt(os.path.join(root, "s2p_minmax.txt"),
+               np.stack([np.zeros(3), np.full(3, 2550.0)]))
+
+
+def gan_snapshot(state):
+    """Host copies of what a GAN step changes: G, its EMA, D (with the
+    spectral norms' u) and each norm's sigma."""
+    return ({k: v.detach().cpu().clone() for k, v in state.net_g.state_dict().items()},
+            {k: v.detach().cpu().clone() for k, v in state.g_ema.state_dict().items()},
+            {k: v.detach().cpu().clone() for k, v in state.net_d.state_dict().items()},
+            {i: state.net_d.sn_convs()[i].sigma.item() for i in range(8)})
+
+
+def gan_tiny_card_vs_cpu():
+    """Two GAN steps of the tiny configuration (NF 8, GC 4, one RRDB, D
+    width 8, VGG19 perceptual, batch 2, lq 8 -> gt 32) on the card and on
+    the CPU from the same seeded weights and batches."""
+    from srbh_tpu_torch.train.sr_trainer import RealESRGANTrainer
+
+    rng = np.random.default_rng(9)
+    batches = [(rng.uniform(0, 1, (2, 8, 8, 3)).astype(np.float32),
+                rng.uniform(0, 1, (2, 32, 32, 3)).astype(np.float32)) for _ in range(2)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        tr = RealESRGANTrainer(num_block=1, num_feat=8, num_grow_ch=4, disc_feat=8)
+        state = tr.init(0, (2, 8, 8, 3), device=dev)
+        step = tr.make_step()
+        rows = []
+        for lq, gt in batches:
+            m = step(state, lq, gt)
+            rows.append(({k: v.item() for k, v in m.items()}, gan_snapshot(state)))
+        out[dev] = rows
+    worst = dict(metric=0.0, u=0.0, sigma=0.0, ema=0.0)
+    bad = total = 0
+    for i, ((m_c, (g_c, e_c, d_c, s_c)), (m_g, (g_g, e_g, d_g, s_g))) in enumerate(
+            zip(out["cpu"], out["cuda"])):
+        worst["metric"] = max([worst["metric"]] + [abs(m_g[k] - v) / (1 + abs(v))
+                                                   for k, v in m_c.items()])
+        worst["u"] = max([worst["u"]] + [(d_g[k] - v).abs().max().item()
+                                         for k, v in d_c.items() if k.endswith("weight_u")])
+        worst["sigma"] = max([worst["sigma"]] + [abs(s_g[j] - s_c[j]) / max(1, abs(s_c[j]))
+                                                 for j in s_c])
+        worst["ema"] = max([worst["ema"]] + [(e_g[k] - v).abs().max().item()
+                                             for k, v in e_c.items()])
+        for a, b in ((g_g, g_c), (d_g, d_c)):
+            for k, v in b.items():
+                if not k.endswith(("weight_u", "weight_v")):
+                    bad += int(((a[k] - v).abs() > 1e-4 * (i + 1)).sum())
+                    total += v.numel()
+    log(f"[gan] tiny GAN step card vs CPU over 2 steps: metrics max |a-b|/(1+|b|) "
+        f"{worst['metric']:.3e} (tol {GAN_TOL:.0e}), SN u {worst['u']:.3e} and sigma "
+        f"{worst['sigma']:.3e} (tol {GAN_SN_TOL:.0e}), EMA {worst['ema']:.3e} (tol "
+        f"{GAN_EMA_TOL:.0e}); G and D params beyond 1e-4 per step: {bad} of {total} "
+        f"(share {bad / total:.2e}, limit {GAN_PARAM_SHARE})")
+    if not (worst["metric"] <= GAN_TOL and worst["u"] <= GAN_SN_TOL
+            and worst["sigma"] <= GAN_SN_TOL and worst["ema"] <= GAN_EMA_TOL
+            and bad / total < GAN_PARAM_SHARE):
+        raise AssertionError("the tiny GAN step disagrees card vs CPU")
+
+
+def check_gan_trained(state, before, last):
+    """What ``train_sr`` must leave behind: finite losses, every G and D
+    parameter moved, the EMA apart from G, every spectral norm's u moved."""
+    g0, e0, d0, _ = before
+    g1, e1, d1, _ = gan_snapshot(state)
+    finite = all(np.isfinite(v) for v in last.values())
+    still_g = [k for k, v in g1.items() if torch.equal(v, g0[k])]
+    still_d = [k for k, v in d1.items() if not k.endswith("weight_v")
+               and torch.equal(v, d0[k])]
+    ema_eq_g = [k for k, v in e1.items() if torch.equal(v, g1[k])]
+    log(f"[gan] after train_sr: losses {last}; G tensors unmoved {len(still_g)} "
+        f"of {len(g1)}, D tensors (u included) unmoved {len(still_d)} of "
+        f"{len(d1) - 8}, EMA tensors equal to G {len(ema_eq_g)}")
+    if not finite or still_g or still_d or ema_eq_g:
+        raise AssertionError(f"GAN training: finite {finite}, unmoved "
+                             f"{(still_g + still_d)[:5]}, EMA = G {ema_eq_g[:5]}")
+
+
+def check_gan_reload(trainer, state, logdir):
+    """``net_g`` through ``load_sr_generator`` and ``net_d`` through its
+    state dict, into a state of other seeded weights: identical."""
+    from srbh_tpu_torch.train.sr_driver import load_sr_generator
+
+    fresh = trainer.init(1, (GAN_BATCH, GAN_LQ, GAN_LQ, 3), device="cuda")
+    load_sr_generator(trainer, logdir, fresh)
+    fresh.net_d.load_state_dict(torch.load(os.path.join(logdir, "net_d"),
+                                           map_location="cuda", weights_only=True)["params"])
+    diff = [f"{name} {k}" for name, a, b in (("net_g", fresh.net_g, state.net_g),
+                                             ("ema", fresh.g_ema, state.g_ema),
+                                             ("net_d", fresh.net_d, state.net_d))
+            for (k, v), w in zip(a.state_dict().items(), b.state_dict().values())
+            if not torch.equal(v, w)]
+    log(f"[gan] net_g / net_d reload into a fresh state: {len(diff)} tensors differ")
+    if diff:
+        raise AssertionError(f"SR checkpoints do not reload identically: {diff[:5]}")
+
+
+def time_gan_steps(smi, dtypes=(torch.bfloat16, torch.float32), label="",
+                   by_op=(torch.float32,)):
+    """tiles/s of the full-width GAN step alone on batches already on the
+    card in each of ``dtypes``, peak memory and a profile of one step by
+    kernel, and for the ``by_op`` dtypes by aten op with its input shapes
+    too (the last: its host-side trace takes the profiler tens of seconds
+    to sort, and the timings should not follow it)."""
+    from srbh_tpu_torch.train.sr_trainer import RealESRGANTrainer
+
+    rng = np.random.default_rng(10)
+    batches = [(torch.tensor(rng.uniform(0, 1, (GAN_BATCH, GAN_LQ, GAN_LQ, 3))
+                             .astype(np.float32), device="cuda"),
+                torch.tensor(rng.uniform(0, 1, (GAN_BATCH, 4 * GAN_LQ, 4 * GAN_LQ, 3))
+                             .astype(np.float32), device="cuda")) for _ in range(2)]
+    results = {}
+    for dtype in dtypes:
+        name = str(dtype)[6:] + label
+        trainer = RealESRGANTrainer(dtype=dtype)
+        state = trainer.init(0, (GAN_BATCH, GAN_LQ, GAN_LQ, 3), device="cuda")
+        step = trainer.make_step()
+        for i in range(2):
+            step(state, *batches[i % 2])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for i in range(GAN_TIMED):
+            m = step(state, *batches[i % 2])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if not all(torch.isfinite(v) for v in m.values()):
+            raise AssertionError(f"GAN step {name}: losses not finite")
+        results[name] = dict(tiles_per_s=GAN_BATCH * GAN_TIMED / dt,
+                             ms_per_step=1e3 * dt / GAN_TIMED, peak_gib=peak)
+        log(f"[gan] GAN step {name}, batch {GAN_BATCH}, lq {GAN_LQ} -> gt "
+            f"{4 * GAN_LQ}, batches on the card: {results[name]['tiles_per_s']:.2f} "
+            f"tiles/s ({results[name]['ms_per_step']:.1f} ms per step over "
+            f"{GAN_TIMED} steps), peak {peak:.2f} GiB, l_g_total "
+            f"{m['l_g_total'].item():.4f}; {smi}")
+        profile(f"GAN step {name}, batch {GAN_BATCH}", lambda: step(state, *batches[0]),
+                warm=False, host_ops=False, by_op=dtype in by_op)
+        del state, step, trainer
+        torch.cuda.empty_cache()
+    return results
+
+
+def gan_step_autotuned():
+    """The float32 GAN step alone with ``torch.backends.cudnn.benchmark`` on
+    (cuDNN times its algorithms for each convolution instead of taking its
+    heuristics' choice), in a process of its own: PyTorch keeps the plan
+    it chose for a convolution's shapes, so the flag changes nothing for
+    shapes a process has run. Returns its ``time_gan_steps`` numbers."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), AUTOTUNED_ARG],
+                          capture_output=True, text=True, timeout=600)
+    lines = proc.stdout.splitlines()
+    for line in lines[:-1]:
+        log(line)
+    if proc.returncode != 0:
+        raise AssertionError(f"the autotuned GAN step failed: {proc.stderr[-3000:]}")
+    return json.loads(lines[-1])
+
+
+def phase_gan(wa, smi):
+    """The Real-ESRGAN finetune at the recipe's width through ``train_sr``
+    and ``eval_sr``."""
+    from srbh_tpu_torch.data.dataset import LRHRPairDataset
+    from srbh_tpu_torch.train.sr_driver import eval_sr, train_sr
+    from srbh_tpu_torch.train.sr_trainer import RealESRGANTrainer
+
+    torch.cuda.empty_cache()
+    log(f"[gan] memory allocated at the start: "
+        f"{torch.cuda.memory_allocated() / 2**20:.1f} MiB")
+    t_phase = time.perf_counter()
+    gan_tiny_card_vs_cpu()
+    timed = {"tiny_card_vs_cpu_s": time.perf_counter() - t_phase}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        write_pairs(root, GAN_PAIRS)
+        timed["write_pairs_s"] = time.perf_counter() - t0
+        pairs = lambda listname, aug: LRHRPairDataset(
+            os.path.join(root, listname), root, root, s2dir="s2p", gedir="gep",
+            aug=aug)
+        # the recipe: RRDBNet-23 (nf 64, gc 32), UNetDiscriminatorSN nf 64,
+        # VGG19 perceptual, float32
+        trainer = RealESRGANTrainer()
+        t0 = time.perf_counter()
+        state = trainer.init(0, (GAN_BATCH, GAN_LQ, GAN_LQ, 3), device="cuda")
+        timed["init_s"] = time.perf_counter() - t0
+        before = gan_snapshot(state)
+        stamps, last = [], {}
+        inner = trainer.make_step
+        skip, n_steps = 2, GAN_PAIRS // GAN_BATCH  # skip: the loader's workers start
+
+        def timed_make_step():
+            """The step, stamped on the host clock as each call returns. The
+            steady-state window's two ends (steps ``skip`` and the last)
+            synchronise; the steps between run at ``train_sr``'s own pace,
+            which waits for the card only at its log lines."""
+            step = inner()
+
+            def timed_step(state, lq, gt):
+                m = step(state, lq, gt)
+                if len(stamps) + 1 in (skip, n_steps):
+                    torch.cuda.synchronize()
+                stamps.append(time.perf_counter())
+                last.update(m)
+                return m
+
+            return timed_step
+
+        trainer.make_step = timed_make_step
+        logdir = os.path.join(root, "sr")
+        wa.window_attention.launches = 0
+        t0 = time.perf_counter()
+        state = train_sr(trainer, pairs("train.csv", True), logdir, epochs=1,
+                         batch_size=GAN_BATCH, num_workers=4, seed=0, state=state,
+                         log_every=4, device="cuda")
+        timed["train_sr_s"] = time.perf_counter() - t0
+        del trainer.make_step
+        t0 = time.perf_counter()
+        res = eval_sr(trainer, state, pairs("eval.csv", False),
+                      txtpath=os.path.join(root, "acc1.txt"), batch_size=8,
+                      device="cuda")
+        timed["eval_s"] = time.perf_counter() - t0
+        launches = wa.window_attention.launches
+        lines = open(os.path.join(root, "acc1.txt")).read().splitlines()
+        last = {k: v.item() for k, v in last.items()}
+        timed["steps"] = len(stamps)
+        timed["train_sr_ms_per_step"] = 1e3 * (stamps[-1] - stamps[skip - 1]) / (
+            len(stamps) - skip)
+        timed["eval_images_per_s"] = GAN_EVAL_PAIRS / timed["eval_s"]
+        log(f"[gan] train_sr, RRDBNet-23 + UNetDiscriminatorSN + VGG19, batch "
+            f"{GAN_BATCH}, lq {GAN_LQ} -> gt {4 * GAN_LQ}, float32, {GAN_PAIRS} "
+            f"pairs = {len(stamps)} steps: {timed['train_sr_s']:.2f} s wall, "
+            f"{timed['train_sr_ms_per_step']:.1f} ms per step in steady state "
+            f"(steps {skip + 1}..{len(stamps)}, 4 loader processes); eval_sr of "
+            f"{GAN_EVAL_PAIRS} pairs {timed['eval_s']:.2f} s = "
+            f"{timed['eval_images_per_s']:.2f} images/s, {res}; acc1.txt {lines}; "
+            f"window_attention launches over train_sr and eval_sr: {launches}; {smi}")
+        if len(stamps) != n_steps or state.step != n_steps:
+            raise AssertionError(f"train_sr took {len(stamps)} steps")
+        if len(lines) != 6 or lines[0] != "psnr, ssim" or not np.isfinite(
+                [res["psnr"], res["ssim"], res["cpsnr"]]).all():
+            raise AssertionError(f"eval_sr: {res}, {lines}")
+        check_gan_trained(state, before, last)
+        t0 = time.perf_counter()
+        check_gan_reload(trainer, state, logdir)
+        timed["reload_check_s"] = time.perf_counter() - t0
+        del state, trainer, before
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    timed["steps_alone"] = time_gan_steps(smi)
+    timed["steps_alone_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    timed["steps_alone"].update(gan_step_autotuned())
+    timed["autotuned_s"] = time.perf_counter() - t0
+    timed["phase_s"] = time.perf_counter() - t_phase
+    log(f"[gan] phase {timed['phase_s']:.1f} s")
+    return {"launches": launches, **timed}
+
+
+def main_autotuned(smi):
+    """``chip_smoke.py --gan-autotuned``: the float32 GAN step alone with
+    cuDNN's autotuning on; its numbers as the last line."""
+    torch.backends.cudnn.benchmark = True
+    print(json.dumps(time_gan_steps(smi, (torch.float32,), ", cudnn.benchmark", by_op=())))
+    return 0
+
+
+def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if argv == [AUTOTUNED_ARG]:
+        return main_autotuned(nvidia_smi())
     from srbh_tpu_torch import entry
     from srbh_tpu_torch.models.swinir import shift_attn_mask
     from srbh_tpu_torch.ops import window_attention as wa
     from srbh_tpu_torch.predict.predictor import make_city_step
     from srbh_tpu_torch.tools import swinir_harness, timing
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
     name, smi = phase_device()
     phase_build(wa)
@@ -1116,6 +1599,8 @@ def main() -> int:
     log(f"[train] summary {json.dumps(train)}")
     city = phase_city(wa, entry, smi)
     log(f"[city] summary {json.dumps(city)}")
+    gan = phase_gan(wa, smi)
+    log(f"[gan] summary {json.dumps(gan)}")
 
     # the inputs SwinIR gives the kernel: strided views of its qkv projection
     plain, masked = rows["classical_qkv"], rows["classical_masked_qkv"]
@@ -1128,7 +1613,9 @@ def main() -> int:
         "launches": launches,
         "launches_by_path": {"swinir_forward": launches,
                              "train": train["launches"],
-                             "city": city["launches"]},
+                             "train_device_norm": train["device_aug_launches"],
+                             "city": city["launches"],
+                             "gan": gan["launches"]},
         "max_abs_err": max(r["max_abs_err"] for n, r in rows.items()
                            if "bf16" not in n),
         "max_abs_err_bf16": max(r["max_abs_err"] for n, r in rows.items()
@@ -1160,4 +1647,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -10,7 +10,13 @@ into the port's modules with ``load_state_dict``. Layout rules:
 * dense kernels (in, out) -> weights (out, in);
 * BatchNorm ``scale/bias`` params and ``mean/var`` stats -> ``weight/bias/
   running_mean/running_var``, with ``num_batches_tracked`` 0;
-* LayerNorm ``scale/bias`` -> ``weight/bias``.
+* LayerNorm ``scale/bias`` -> ``weight/bias``;
+* spectral-normalised convs: the kernel -> ``weight_orig``, the power
+  iteration's ``u`` (``batch_stats``) -> ``weight_u``; flax keeps no ``v``,
+  so ``weight_v`` is ``n(W^T u)``, the next iteration's (no forward reads
+  it);
+* optax Adam states (``count``, ``mu``, ``nu``) -> torch Adam states
+  (``step``, ``exp_avg``, ``exp_avg_sq``), through the same name mapping.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ from srbh_tpu_torch.models.efficientnet import (
     SCALING,
     round_repeats,
 )
+from srbh_tpu_torch.models.vgg import VGG19_CFG
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -71,6 +78,96 @@ def rrdbnet_state_dict(variables: Mapping, num_block: int = 23) -> StateDict:
         if name in p:
             _conv(sd, name, p[name])
     return sd
+
+
+def _adam_moments(opt_state: Mapping, to_sd) -> dict:
+    """``{"exp_avg": {name: t}, "exp_avg_sq": {...}, "step": n}`` from an
+    optax ``adam`` state in flax state-dict form (``{"0": {"count", "mu",
+    "nu"}, "1": ...}``); ``to_sd`` maps a params tree to a state dict."""
+    adam = opt_state["0"]
+    return {"exp_avg": to_sd(adam["mu"]), "exp_avg_sq": to_sd(adam["nu"]),
+            "step": int(np.asarray(adam["count"]))}
+
+
+def _l2n(x: np.ndarray) -> np.ndarray:
+    return x / np.sqrt((x * x).sum() + 1e-12)
+
+
+def unet_discriminator_sn_state_dict(variables: Mapping) -> StateDict:
+    """UNetDiscriminatorSN: ``conv0`` / ``conv9`` and the spectral-normalised
+    ``conv{1..8}.weight_orig`` / ``weight_u`` / ``weight_v``; without
+    ``batch_stats`` (a params tree, as for Adam's moments) only the
+    parameters."""
+    p = variables["params"]
+    stats = variables.get("batch_stats")
+    sd: StateDict = {}
+    _conv(sd, "conv0", p["conv0"])
+    for i in range(1, 9):
+        w = np.asarray(p[f"conv{i}"]["kernel"], np.float32).transpose(3, 2, 0, 1)
+        sd[f"conv{i}.weight_orig"] = _t(w)
+        if stats is not None:
+            u = np.asarray(stats[f"conv{i}_sn"][f"conv{i}/kernel/u"],
+                           np.float32).reshape(-1)
+            sd[f"conv{i}.weight_u"] = _t(u)
+            sd[f"conv{i}.weight_v"] = _t(_l2n(w.reshape(w.shape[0], -1).T @ u))
+    _conv(sd, "conv9", p["conv9"])
+    return sd
+
+
+def vgg19_state_dict(variables: Mapping) -> StateDict:
+    """VGG19Features: the JAX ``conv{k}`` -> torchvision ``features.{i}``
+    (conv, ReLU pairs, a pool after each stage)."""
+    p = variables["params"]
+    sd: StateDict = {}
+    seq = conv = 0
+    for item in VGG19_CFG:
+        if item == "M":
+            seq += 1
+            continue
+        if f"conv{conv}" in p:
+            _conv(sd, f"features.{seq}", p[f"conv{conv}"])
+        seq += 2
+        conv += 1
+    return sd
+
+
+def vgg_style_discriminator_state_dict(variables: Mapping,
+                                       input_size: int = 128) -> StateDict:
+    """VGGStyleDiscriminator: ``conv{i}_{j}``, ``bn{i}_{j}``, ``linear1/2``.
+    ``linear1``'s inputs are the JAX model's NHWC flattening, reordered to
+    the port's NCHW one."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd: StateDict = {}
+    stages = 5 if input_size == 128 else 6
+    for i in range(stages):
+        for j in (0, 1):
+            if f"conv{i}_{j}" in p:
+                _conv(sd, f"conv{i}_{j}", p[f"conv{i}_{j}"])
+            if f"bn{i}_{j}" in p:
+                _bn(sd, f"bn{i}_{j}", p[f"bn{i}_{j}"], s[f"bn{i}_{j}"])
+    k = np.asarray(p["linear1"]["kernel"])
+    c = np.asarray(p[f"bn{stages - 1}_1"]["scale"]).shape[0]
+    side = int(round((k.shape[0] / c) ** 0.5))
+    sd["linear1.weight"] = _t(k.reshape(side, side, c, -1).transpose(3, 2, 0, 1)
+                              .reshape(k.shape[1], -1))
+    sd["linear1.bias"] = _t(p["linear1"]["bias"])
+    _dense(sd, "linear2", p["linear2"])
+    return sd
+
+
+def gan_state_from_jax(g_params: Mapping, g_ema: Mapping, d_vars: Mapping,
+                       g_opt: Optional[Mapping] = None,
+                       d_opt: Optional[Mapping] = None, num_block: int = 23):
+    """The JAX package's GAN train state -> the port's: ``(g, g_ema, d,
+    g_moments, d_moments)``, the generator's, its EMA's and the
+    discriminator's state dicts, and, for each optax Adam state given (flax
+    state-dict form), the torch Adam moments by parameter name
+    (``sr_trainer.load_adam_moments``), else ``None``."""
+    g_sd = lambda tree: rrdbnet_state_dict({"params": tree}, num_block)
+    d_sd = lambda tree: unet_discriminator_sn_state_dict({"params": tree})
+    return (g_sd(g_params), g_sd(g_ema), unet_discriminator_sn_state_dict(d_vars),
+            None if g_opt is None else _adam_moments(g_opt, g_sd),
+            None if d_opt is None else _adam_moments(d_opt, d_sd))
 
 
 def _basic_block(sd: StateDict, prefix: str, p: Mapping, s: Mapping) -> None:

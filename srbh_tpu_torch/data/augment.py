@@ -16,7 +16,8 @@ as the JAX package's float twin does (``srbh_tpu/ops/device_aug.py``), not
 with OpenCV's fixed-point weights, so it agrees with cv2 to about 1 % of the
 value range (``tests/test_torch_data.py``). The random draws come in the
 same order and types as the JAX package's, so a generator ends in the same
-state after either.
+state after either. ``augment_lrhr_pair`` does the same for the SR
+finetune's LR / HR pairs.
 """
 from __future__ import annotations
 
@@ -128,3 +129,24 @@ def augment_pair_lowres(rng: np.random.Generator, img_lr: np.ndarray,
         img_lr = rotate_image_lowres(img_lr, angle, scale)
         mask = rotate_mask_nearest(mask, angle)
     return img_lr, mask
+
+
+def augment_lrhr_pair(rng: np.random.Generator, lr: np.ndarray, hr: np.ndarray,
+                      scale: int = 4) -> Tuple[np.ndarray, np.ndarray]:
+    """The SR pairs' joint augmentation (``srbh_tpu/data/augment.py:118-147``,
+    BH_loader.py:713-736): flip, grid shuffle and rotation, each with
+    p=0.5, of the LR image (H, W, C) and the HR image (scale*H, scale*W, C),
+    in the JAX package's draw order. Both halves rotate bilinear: the LR in
+    the fused low-res form, the HR at full resolution
+    (``rotate_image_lowres`` with scale 1)."""
+    if rng.random() < 0.5:
+        d = int(rng.integers(-1, 2))
+        lr, hr = flip(lr, d), flip(hr, d)
+    if rng.random() < 0.5:
+        order = rng.permutation(4)
+        lr, hr = grid_shuffle_2x2(lr, order), grid_shuffle_2x2(hr, order)
+    if rng.random() < 0.5:
+        angle = float(rng.uniform(-90.0, 90.0))
+        lr = rotate_image_lowres(lr, angle, scale)
+        hr = rotate_image_lowres(hr, angle, 1)
+    return lr, hr

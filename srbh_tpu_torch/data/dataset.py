@@ -8,6 +8,15 @@ the hierarchical class mask and per-pixel weights, and the 64x64 aggregated
 height target. The pixel recipe is the reference's: image x4 nearest ->
 augment -> normalise -> x0.25 nearest -> clip, computed in its fused low-res
 form (``data/augment.py``). The data list is read with the ``csv`` module.
+
+``device_aug`` leaves augmentation and target building to the train step
+(``ops/device_aug.py``): a sample is the normalised image and the raw
+height. ``device_norm`` (which needs ``device_aug``) leaves normalisation to
+it too: a sample is the raw ``s2`` (uint16), ``s1`` and height.
+
+:class:`LRHRPairDataset` (``srbh_tpu/data/dataset.py:264-326``,
+BH_loader.py:638-757) gives the SR finetune's LR (Sentinel-2 RGB) / HR
+(GoogleEarth) pairs.
 """
 from __future__ import annotations
 
@@ -17,7 +26,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from srbh_tpu_torch.data.augment import augment_pair_lowres
+from srbh_tpu_torch.data.augment import augment_lrhr_pair, augment_pair_lowres
 from srbh_tpu_torch.data.tiff import read_tiff
 from srbh_tpu_torch.ops.hierarchy import (
     DEFAULT_HIR,
@@ -57,7 +66,8 @@ class S12GlobeDataset:
                  s1dir: str = "s1", s2dir: str = "s2", heightdir: str = "bh",
                  preweight: Optional[str] = None, isaggre: bool = False,
                  ishir: bool = False, hir=DEFAULT_HIR, nchans: int = 6,
-                 weightmethod: str = "sqrt", seed: int = 1337):
+                 weightmethod: str = "sqrt", seed: int = 1337,
+                 device_aug: bool = False, device_norm: bool = False):
         if isaggre and not ishir:
             # the aggregated weights index the hierarchy LUT (the reference
             # fails the same way, BH_loader.py:326-329, 389)
@@ -90,6 +100,16 @@ class S12GlobeDataset:
         self.seed = seed
         self._epoch = 0
         self._weight32 = self.heightweight.astype(np.float32)
+        if device_aug and aug:
+            raise ValueError("device_aug replaces host aug: pass aug=False")
+        if device_norm and not device_aug:
+            raise ValueError("device_norm requires device_aug")
+        if device_norm and (self.s2_off is None or self.s1_off is None):
+            # the step's normaliser needs both tables up front
+            raise FileNotFoundError(
+                f"device_norm needs both stats tables: "
+                f"{self._s2_stats_path} and {self._s1_stats_path}")
+        self.device_aug, self.device_norm = device_aug, device_norm
 
     def __len__(self):
         return len(self._rows)
@@ -104,19 +124,28 @@ class S12GlobeDataset:
         same draws whatever the number or order of loader workers."""
         return np.random.default_rng((self.seed, self._epoch, index))
 
-    def _load_pair(self, index):
+    def _read(self, index):
+        """(s2, s1, height, s2 path) as the files hold them."""
         basename, s1dir, s2dir, bhdir = self._rows[index][:4]
         s2 = read_tiff(os.path.join(self.rootname, s2dir, basename))[..., : self.nchans]
         s1 = read_tiff(os.path.join(self.rootname, s1dir, basename))
-        img = np.concatenate([s2, s1], axis=-1).astype(np.float32)
         hpath = os.path.join(self.rootname, bhdir, basename)
         if os.path.exists(hpath):
             height = read_tiff(hpath)[..., 0]
         else:
             height = np.ones((256, 256), np.uint8)  # BH_loader.py:346
-        return img, height, os.path.join(self.rootname, s2dir, basename)
+        return s2, s1, height, os.path.join(self.rootname, s2dir, basename)
+
+    def _load_pair(self, index):
+        s2, s1, height, path = self._read(index)
+        return np.concatenate([s2, s1], axis=-1).astype(np.float32), height, path
 
     def __getitem__(self, index):
+        if self.device_norm:
+            s2, s1, height, path = self._read(index)
+            return {"s2": np.ascontiguousarray(s2),
+                    "s1": np.ascontiguousarray(s1.astype(np.float32)),
+                    "height": np.ascontiguousarray(height), "path": path}
         img, height, img_path = self._load_pair(index)
         if self.aug:
             img, height = augment_pair_lowres(self._sample_rng(index), img, height)
@@ -138,6 +167,9 @@ class S12GlobeDataset:
         return self._finish_sample(img, height, img_path)
 
     def _finish_sample(self, img, height, img_path):
+        if self.device_aug:  # the height keeps its file dtype (uint8)
+            return {"image": np.ascontiguousarray(img),
+                    "height": np.ascontiguousarray(height), "path": img_path}
         height = height.astype(np.float32)
         if self.ishir:
             build = self.buildhir[height.astype(np.int64).clip(0, 255)]
@@ -154,3 +186,58 @@ class S12GlobeDataset:
             sample["height_aggre"] = aggre
             sample["weight_aggre"] = self._weight32[build_aggre]
         return sample
+
+
+class LRHRPairDataset:
+    """LR / HR pairs for the Real-ESRGAN finetune: joint flip, grid shuffle
+    and rotation (``aug``), per-band min-max or mean-std normalisation of
+    both sides, the LR clipped to [0, 1]. ``num_sample`` takes the
+    reference's seeded subset, ``DataFrame.sample(n, random_state=0)``,
+    which is ``RandomState(0).choice(len, n, replace=False)``. Without a
+    ``{gedir}_{normmethod}.txt`` table the HR side is scaled by (0, 255)."""
+
+    def __init__(self, datalist: str, rootname: str, datastats: str,
+                 normmethod: str = "minmax", aug: bool = False,
+                 num_sample: int = 0, s2dir: str = "s2", gedir: str = "ge",
+                 nchans: int = 3, seed: int = 1337):
+        with open(datalist, newline="") as f:
+            rows = [tuple(r) for r in csv.reader(f) if r]
+        if num_sample > 0:
+            idx = np.random.RandomState(0).choice(len(rows), num_sample,
+                                                  replace=False)
+            rows = [rows[i] for i in idx]
+        self._rows = rows
+        self.rootname, self.s2dir, self.gedir = rootname, s2dir, gedir
+        self.nchans, self.aug, self.seed = nchans, aug, seed
+        self.off, self.scale = norm_offsets(load_stats_table(
+            os.path.join(datastats, f"{s2dir}_{normmethod}.txt"), nchans),
+            normmethod)
+        ge_path = os.path.join(datastats, f"{gedir}_{normmethod}.txt")
+        if os.path.exists(ge_path):
+            self.ge_off, self.ge_scale = norm_offsets(
+                load_stats_table(ge_path, 3), normmethod)
+        else:
+            self.ge_off = np.zeros(3, np.float32)
+            self.ge_scale = np.full(3, 255.0, np.float32)
+        self._epoch = 0
+
+    def __len__(self):
+        return len(self._rows)
+
+    set_epoch = S12GlobeDataset.set_epoch
+    _sample_rng = S12GlobeDataset._sample_rng
+
+    def __getitem__(self, index):
+        row = self._rows[index]
+        s2dir = row[2] if len(row) > 2 else self.s2dir
+        gedir = row[4] if len(row) > 4 else self.gedir
+        lr = read_tiff(os.path.join(self.rootname, s2dir, row[0]))[..., : self.nchans]
+        hr = read_tiff(os.path.join(self.rootname, gedir, row[0]))[..., :3]
+        lr, hr = lr.astype(np.float32), hr.astype(np.float32)
+        if self.aug:
+            # flips, shuffles and warps commute with the per-band affine
+            # normalisation, so the raw values are augmented first
+            lr, hr = augment_lrhr_pair(self._sample_rng(index), lr, hr)
+        lr = ((lr - self.off) / self.scale).clip(0, 1)  # the LR side only
+        hr = (hr - self.ge_off) / self.ge_scale
+        return {"lq": np.ascontiguousarray(lr), "gt": np.ascontiguousarray(hr)}

@@ -5,7 +5,8 @@ built on train.py:113-130's ``torch.utils.data.DataLoader(num_workers=8,
 pin_memory=True)``: the same index order (a ``default_rng(seed + epoch)``
 shuffle), the same ``set_epoch`` call on the dataset at the start of every
 epoch (before the epoch's workers start, so each holds that epoch), and
-batches of stacked samples (the last one may be short). ``num_workers``
+batches of stacked samples (the last one may be short, or with
+``drop_last`` is left out). ``num_workers``
 processes load the samples. With ``device_put`` the batches are collated
 into pinned host tensors when ``device`` (``None`` is the card) is a card,
 and copied to it with ``non_blocking=True``, but for ``path`` and the keys
@@ -46,7 +47,7 @@ class DataLoader:
     def __init__(self, dataset, batch_size: int = 16, shuffle: bool = False,
                  num_workers: int = 4, seed: int = 1337,
                  device_put: bool = False, device=None,
-                 host_keys: Sequence[str] = ()):
+                 host_keys: Sequence[str] = (), drop_last: bool = False):
         self.dataset = dataset
         self.host_keys = ("path", *host_keys)
         self.device = resolve_device(device) if device_put else None
@@ -54,7 +55,7 @@ class DataLoader:
         self._order = _EpochOrder(len(dataset), shuffle, seed)
         self._loader = torch.utils.data.DataLoader(
             dataset, batch_size=batch_size, sampler=self._order,
-            num_workers=num_workers,
+            num_workers=num_workers, drop_last=drop_last,
             pin_memory=self.device is not None and self.device.type == "cuda")
 
     def __len__(self):

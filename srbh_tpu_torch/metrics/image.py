@@ -1,0 +1,126 @@
+"""Host float64 image-quality metrics: PSNR, SSIM, cPSNR.
+
+A copy of the host part of ``srbh_tpu/metrics/image.py`` (SR/psnr_ssim.py),
+which the port may not import: ``calculate_psnr`` / ``calculate_ssim``
+(:163-318; numpy float64, MATLAB's Gaussian-window SSIM, the BT.601
+Y-channel option) and ``calculate_cpsnr`` (:390-442, PROBA-V's shift and
+bias search over 8 pixels). Images are [0, 255] arrays, HWC or CHW. The
+SSIM window is ``ops/usm.py``'s ``cv2_gaussian_kernel``, the same formula as
+the JAX package's ``gaussian_kernel_1d``.
+"""
+from __future__ import annotations
+
+import numpy as np
+from scipy.ndimage import convolve
+
+from srbh_tpu_torch.ops.usm import cv2_gaussian_kernel
+
+
+def reorder_image(img: np.ndarray, input_order: str = "HWC") -> np.ndarray:
+    """An HWC view of an 'HWC' or 'CHW' image (SR/psnr_ssim.py:63-87)."""
+    if input_order not in ("HWC", "CHW"):
+        raise ValueError(f"Wrong input_order {input_order!r}")
+    if img.ndim == 2:
+        return img[..., None]
+    if input_order == "CHW":
+        return img.transpose(1, 2, 0)
+    return img
+
+
+def bgr2ycbcr(img: np.ndarray, y_only: bool = False) -> np.ndarray:
+    """BT.601 BGR -> YCbCr (SR/psnr_ssim.py:90-120) of a uint8 [0, 255] or
+    float [0, 1] image."""
+    img_type = img.dtype
+    x = img.astype(np.float32)
+    if img_type == np.uint8:
+        x = x / 255.0
+    if y_only:
+        out = x @ np.asarray([24.966, 128.553, 65.481]) + 16.0
+    else:
+        out = x @ np.asarray(
+            [[24.966, 112.0, -18.214], [128.553, -74.203, -93.786],
+             [65.481, -37.797, 112.0]]) + np.asarray([16.0, 128.0, 128.0])
+    if img_type == np.uint8:
+        return out.round().astype(np.uint8)
+    return (out / 255.0).astype(img_type)
+
+
+def to_y_channel(img: np.ndarray) -> np.ndarray:
+    """A [0, 255] image's BT.601 Y channel, [0, 255] float
+    (SR/psnr_ssim.py:147-160)."""
+    img = img.astype(np.float32) / 255.0
+    if img.ndim == 3 and img.shape[2] == 3:
+        img = bgr2ycbcr(img, y_only=True)[..., None]
+    return img * 255.0
+
+
+def _prepare(img, img2, crop_border, input_order, test_y_channel):
+    if img.shape != img2.shape:
+        raise ValueError(f"Image shapes differ: {img.shape} vs {img2.shape}")
+    img = reorder_image(np.asarray(img), input_order)
+    img2 = reorder_image(np.asarray(img2), input_order)
+    if crop_border != 0:
+        img = img[crop_border:-crop_border, crop_border:-crop_border, ...]
+        img2 = img2[crop_border:-crop_border, crop_border:-crop_border, ...]
+    if test_y_channel:
+        img, img2 = to_y_channel(img), to_y_channel(img2)
+    return img.astype(np.float64), img2.astype(np.float64)
+
+
+def calculate_psnr(img, img2, crop_border=0, input_order="HWC",
+                   test_y_channel=False, **kwargs) -> float:
+    """PSNR of [0, 255] images; inf when they are equal."""
+    img, img2 = _prepare(img, img2, crop_border, input_order, test_y_channel)
+    mse = np.mean((img - img2) ** 2)
+    if mse == 0:
+        return float("inf")
+    return 10.0 * np.log10(255.0 * 255.0 / mse)
+
+
+def _ssim_channel(img: np.ndarray, img2: np.ndarray) -> float:
+    c1, c2 = (0.01 * 255) ** 2, (0.03 * 255) ** 2
+    k = cv2_gaussian_kernel(11, 1.5)  # the JAX package's gaussian_kernel_1d
+    window = np.outer(k, k)
+
+    def filt(x):  # the filter's VALID region
+        return convolve(x, window, mode="nearest")[5:-5, 5:-5]
+
+    mu1, mu2 = filt(img), filt(img2)
+    mu1_sq, mu2_sq, mu1_mu2 = mu1**2, mu2**2, mu1 * mu2
+    sigma1_sq = filt(img**2) - mu1_sq
+    sigma2_sq = filt(img2**2) - mu2_sq
+    sigma12 = filt(img * img2) - mu1_mu2
+    ssim_map = ((2 * mu1_mu2 + c1) * (2 * sigma12 + c2)) / (
+        (mu1_sq + mu2_sq + c1) * (sigma1_sq + sigma2_sq + c2))
+    return float(ssim_map.mean())
+
+
+def calculate_ssim(img, img2, crop_border=0, input_order="HWC",
+                   test_y_channel=False, **kwargs) -> float:
+    """SSIM averaged over the channels (SR/psnr_ssim.py:236-285)."""
+    img, img2 = _prepare(img, img2, crop_border, input_order, test_y_channel)
+    return float(np.mean([_ssim_channel(img[..., i], img2[..., i])
+                          for i in range(img.shape[2])]))
+
+
+def calculate_cpsnr(img, img2, crop_border=0, input_order="HWC",
+                    test_y_channel=False, **kwargs) -> float:
+    """cPSNR: the best PSNR over +-8 pixel shifts, each with its channels'
+    bias corrected."""
+    img1, img2 = _prepare(img, img2, crop_border, input_order, test_y_channel)
+    max_offset = 8
+    h, w = img1.shape[:2]
+    ch, cw = h - max_offset, w - max_offset
+    best_mse = None
+    for ro in range(max_offset + 1):
+        for co in range(max_offset + 1):
+            a = img1[ro: ro + ch, co: co + cw]
+            b = img2[max_offset - ro: max_offset - ro + ch,
+                     max_offset - co: max_offset - co + cw].copy()
+            b += (a - b).mean(axis=(0, 1), keepdims=True)
+            mse = float(np.mean((a - b) ** 2))
+            if best_mse is None or mse < best_mse:
+                best_mse = mse
+    if best_mse == 0:
+        return float("inf")
+    return 10.0 * np.log10(255.0 * 255.0 / best_mse)

@@ -13,6 +13,12 @@ place, synchronously.
 (``srbh_tpu.train.convert.save_tree_npz``: a flat npz whose keys join the
 tree's path with ``\\x1f``, or ``/`` in older files) through
 ``convert.train_state_from_jax``.
+
+The Real-ESRGAN trainer's checkpoints (``srbh_tpu/train/sr_driver.py:32-44``)
+are two ``torch.save`` files in its log directory with BasicSR's keys:
+``net_g`` (``params``, ``params_ema``, ``epoch``, ``current_iter``) and
+``net_d`` (``params``, the spectral norms' ``weight_u`` / ``weight_v``
+included, ``epoch``, ``current_iter``).
 """
 from __future__ import annotations
 
@@ -41,13 +47,29 @@ def save_checkpoint(logdir: str, state, epoch: int, best_rmse: float,
         "optimizer": state.optimizer.state_dict(),
     }
     path = os.path.join(logdir, "checkpoint")
-    torch.save(payload, path + ".tmp")
-    os.replace(path + ".tmp", path)
+    _save(payload, path)
     if snapshot_every and epoch % snapshot_every == 0:
         shutil.copyfile(path, os.path.join(logdir, f"checkpoint{epoch}"))
     if is_best:
         shutil.copyfile(path, os.path.join(logdir, "model_best"))
     return path
+
+
+def _save(payload: dict, path: str) -> None:
+    torch.save(payload, path + ".tmp")
+    os.replace(path + ".tmp", path)
+
+
+def save_sr_checkpoint(logdir: str, state, epoch: int) -> str:
+    """Write ``net_g`` and ``net_d`` of a GAN train state in ``logdir``;
+    returns the path of ``net_g``."""
+    meta = {"epoch": int(epoch), "current_iter": int(state.step)}
+    _save({"params": state.net_g.state_dict(),
+           "params_ema": state.g_ema.state_dict(), **meta},
+          os.path.join(logdir, "net_g"))
+    _save({"params": state.net_d.state_dict(), **meta},
+          os.path.join(logdir, "net_d"))
+    return os.path.join(logdir, "net_g")
 
 
 def load_tree_npz(path: str) -> dict:

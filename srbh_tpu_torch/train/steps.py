@@ -11,7 +11,9 @@ Batches are dicts of NHWC arrays or tensors, as the JAX steps take them:
 ``image`` (N, 64, 64, 8), ``height`` / ``build`` / ``weight`` (N, 256, 256)
 and, with ``isaggre``, ``height_aggre`` / ``weight_aggre`` (N, 64, 64).
 Entries are moved to the step's device (``non_blocking`` from pinned host
-memory). Outputs stay on the device.
+memory). Outputs stay on the device. With ``device_aug`` a batch is only
+``image`` and ``height`` (augmentation and targets run in the step), and
+with ``norm`` also only raw ``s2`` / ``s1`` in place of ``image``.
 """
 from __future__ import annotations
 
@@ -27,9 +29,13 @@ from srbh_tpu_torch.losses.adaptive import (
     mse_adapt,
     mse_adapt_weight,
 )
-
-_QUEUE_ITEM_8 = ("{} (in-step augmentation / normalisation) is not ported "
-                 "yet: ROADMAP.md Queue 1 item 8")
+from srbh_tpu_torch.ops.device_aug import (
+    AUG_TAG,
+    augment_batch,
+    build_targets,
+    draw_augment,
+)
+from srbh_tpu_torch.ops.hierarchy import DEFAULT_HIR, build_hierarchy_lut
 
 
 def _compute(dev: torch.device, dtype: torch.dtype):
@@ -57,14 +63,38 @@ def _features(sr_model, image, rgb):
         return (sr_model(image[:, rgb], features_only=True),)
 
 
-def step_seed(seed: int, step: int) -> int:
-    """The drop-connect generator's seed for one step: a hash of
-    ``(seed, step)``, as the JAX step folds ``state.step`` into its key."""
-    return int(np.random.SeedSequence((seed, step)).generate_state(1)[0])
+def step_seed(seed: int, step: int, *tag: int) -> int:
+    """A generator's seed for one step: a hash of ``(seed, step)`` for the
+    drop-connect draws, as the JAX step folds ``state.step`` into its key,
+    and of ``(seed, tag, step)`` for a stream of its own (the augmentation
+    draws: ``AUG_TAG``)."""
+    return int(np.random.SeedSequence((seed, *tag, step)).generate_state(1)[0])
+
+
+def _augment(b, dev, seed, step, norm, lut, cw, isaggre, ishir):
+    """The batch the model trains on, from a device-aug batch: normalise the
+    raw DNs (``norm``), augment, clip to [0, 1] (``norm``: the host clips
+    after augmenting), then build the targets."""
+    if norm is not None:
+        image = torch.cat([(b[k].float() - norm[f"{k}_off"]) / norm[f"{k}_scale"]
+                           for k in ("s2", "s1")], -1)
+    else:
+        image = b["image"].float()
+    gen = torch.Generator(device=dev).manual_seed(step_seed(seed, step, AUG_TAG))
+    img, height = augment_batch(image, b["height"], draw_augment(len(image), gen))
+    if norm is not None:
+        img = img.clamp(0, 1)
+    if ishir:
+        return {"image": img, **build_targets(height, lut, cw, isaggre)}
+    # the host's ishir=False targets: a binary build mask, unit weights
+    hf = height.float()
+    return {"image": img, "height": hf, "build": (hf > 0).to(torch.int32),
+            "weight": torch.ones_like(hf)}
 
 
 def make_train_step(model, sr_model, rgb_idx=(0, 1, 2), isaggre: bool = True,
-                    seed: int = 0, device_aug: bool = False, norm=None,
+                    seed: int = 0, device_aug: bool = False, hir=None,
+                    class_weight=None, norm=None, ishir: bool = True,
                     dtype: torch.dtype = torch.float32, device=None):
     """Build the aggre+weight train step (train.py:225-271):
     ``step(state, batch, lr) -> {"loss", "rmse", "log_vars"}``, updating
@@ -79,13 +109,20 @@ def make_train_step(model, sr_model, rgb_idx=(0, 1, 2), isaggre: bool = True,
     other than float32 runs both models under ``torch.autocast``; the losses
     are float32. ``device`` (``None`` is the card) receives both models.
 
-    ``device_aug`` and ``norm`` raise ``NotImplementedError`` (the JAX
-    step's ``hir``, ``class_weight`` and ``ishir`` only serve them).
+    ``device_aug`` augments the batch and builds its targets in the step
+    (``ops/device_aug.py``) from ``hir`` and ``class_weight`` (the dataset's
+    ``heightweight``; ones if ``None``), or, with ``ishir=False``, a binary
+    build mask and unit weights. Its draws come from a generator on the
+    device seeded with ``step_seed(seed, k, AUG_TAG)``, a stream apart from
+    the drop-connect one, which stays as without ``device_aug``. ``norm``
+    (which needs ``device_aug``), a dict of the dataset's ``s2_off``,
+    ``s2_scale``, ``s1_off`` and ``s1_scale``, normalises raw ``s2`` / ``s1``
+    in the step before augmenting and clips to [0, 1] after.
     """
-    if device_aug:
-        raise NotImplementedError(_QUEUE_ITEM_8.format("device_aug"))
-    if norm is not None:
-        raise NotImplementedError(_QUEUE_ITEM_8.format("norm"))
+    if norm is not None and not device_aug:
+        raise ValueError("norm (in-step normalisation) requires device_aug")
+    if device_aug and isaggre and not ishir:
+        raise ValueError("isaggre=True requires ishir=True")
     dev = resolve_device(device)
     model.to(dev)
     if sr_model is not None:
@@ -94,9 +131,23 @@ def make_train_step(model, sr_model, rgb_idx=(0, 1, 2), isaggre: bool = True,
     keys = ["image", "height", "build", "weight"]
     if isaggre:
         keys += ["height_aggre", "weight_aggre"]
+    if device_aug:
+        keys = ["s2", "s1", "height"] if norm is not None else ["image", "height"]
+        hir = hir or DEFAULT_HIR
+        if class_weight is None:
+            class_weight = np.ones(len(hir) - 1)
+        # the tables live on the device: a copy from pageable host memory
+        # each step would make the host wait for the card
+        lut = torch.as_tensor(build_hierarchy_lut(hir).astype(np.int64), device=dev)
+        cw = torch.as_tensor(np.asarray(class_weight, np.float32), device=dev)
+        if norm is not None:
+            norm = {k: torch.as_tensor(np.asarray(v, np.float32), device=dev)
+                    for k, v in norm.items()}
 
     def step(state, batch, lr):
         b = _to_device(batch, keys, dev)
+        if device_aug:
+            b = _augment(b, dev, seed, state.step, norm, lut, cw, isaggre, ishir)
         image = _nchw(b["image"])
         height_t = b["height"].float()
         model.train()

@@ -7,10 +7,12 @@ resume, the epoch loop with the step-decay LR, per-epoch validation, and the
 per epoch. ``writer`` takes an object with ``add_scalar(tag, value, epoch)``
 and ``close()`` (a TensorBoard writer); with ``None`` nothing is written.
 
+``--device_aug`` moves augmentation and target building into the train
+step; ``--device_norm`` (which implies ``--device_aug``) normalisation too.
+
 Not ported yet (``ROADMAP.md``): ``main_test`` and its metric writers, the
-data-parallel and FSDP branches, ``device_aug`` / ``device_norm``,
-``remat``, the ImageNet encoder start and the nosuper variant; their flags
-raise (``_REFUSED``). ``save_opt_state`` and ``async_checkpoint`` are
+data-parallel and FSDP branches, ``remat``, the ImageNet encoder start and
+the nosuper variant; their flags raise (``_REFUSED``). ``save_opt_state`` and ``async_checkpoint`` are
 accepted and change nothing: every checkpoint holds the optimizer state
 (exact resume) and is written synchronously.
 """
@@ -43,7 +45,6 @@ from srbh_tpu_torch.train.steps import make_eval_step, make_train_step
 
 # flags of TrainConfig the port refuses, and the ROADMAP.md item they wait for
 _REFUSED = {
-    "device_aug": "Queue 1 item 8", "device_norm": "Queue 1 item 8",
     "fsdp": "Queue 1 item 13", "remat": "Queue 1 item 15",
     "encoder_weights": "Queue 1 item 6 (ImageNet encoder start)",
 }
@@ -101,14 +102,17 @@ def load_sr_weights(cfg: TrainConfig, sr) -> bool:
 
 def make_loader(cfg: TrainConfig, listname: str, aug: bool, isaggre: bool,
                 ishir: bool, num_sample: int = 0, shuffle: bool = True,
-                preweight: Optional[str] = None, device=None) -> DataLoader:
+                preweight: Optional[str] = None, device=None,
+                device_aug: bool = False, device_norm: bool = False
+                ) -> DataLoader:
     """A loader whose batches arrive on ``device`` (``None`` is the card)."""
     ds = S12GlobeDataset(
         os.path.join(cfg.datapath, listname), cfg.datapath,
         datastats=cfg.datastats, normmethod="minmax", datarange=(0, 1),
         aug=aug, num_sample=num_sample, s1dir=cfg.s1dir, s2dir=cfg.s2dir,
         heightdir=cfg.bhdir, preweight=preweight, isaggre=isaggre,
-        ishir=ishir, hir=cfg.hir, nchans=cfg.nchanss2, seed=cfg.seed)
+        ishir=ishir, hir=cfg.hir, nchans=cfg.nchanss2, seed=cfg.seed,
+        device_aug=device_aug, device_norm=device_norm)
     return DataLoader(ds, batch_size=cfg.batch_size, shuffle=shuffle,
                       num_workers=cfg.num_workers, seed=cfg.seed,
                       device_put=True, device=device)
@@ -124,9 +128,13 @@ def main(cfg: TrainConfig, writer=None,
     _check_supported(cfg)
     np.random.seed(cfg.seed)
     torch.manual_seed(cfg.seed)
-    trainloader = make_loader(cfg, cfg.trainlist, aug=True, isaggre=cfg.isaggre,
-                              ishir=cfg.ishir, num_sample=cfg.num_sample,
-                              preweight=cfg.preweight, device=dev)
+    device_aug = cfg.device_aug or cfg.device_norm
+    trainloader = make_loader(cfg, cfg.trainlist, aug=not device_aug,
+                              isaggre=cfg.isaggre, ishir=cfg.ishir,
+                              num_sample=cfg.num_sample,
+                              preweight=cfg.preweight, device=dev,
+                              device_aug=device_aug,
+                              device_norm=cfg.device_norm)
     valloader = make_loader(cfg, cfg.vallist, aug=False, isaggre=False,
                             ishir=False, num_sample=cfg.num_sample // 2,
                             shuffle=False, device=dev)
@@ -153,8 +161,15 @@ def main(cfg: TrainConfig, writer=None,
         print(f"=> resumed epoch {start_epoch}")
 
     dtype = torch.bfloat16 if cfg.bf16 else torch.float32
+    ds = trainloader.dataset
+    norm = ({k: getattr(ds, k) for k in ("s2_off", "s2_scale", "s1_off",
+                                          "s1_scale")}
+            if cfg.device_norm else None)
     train_step = make_train_step(model, sr, cfg.rgbseq, cfg.isaggre,
-                                 seed=cfg.seed, dtype=dtype, device=dev)
+                                 seed=cfg.seed, device_aug=device_aug,
+                                 hir=cfg.hir, class_weight=ds.heightweight,
+                                 norm=norm, ishir=cfg.ishir, dtype=dtype,
+                                 device=dev)
     eval_step = make_eval_step(model, sr, cfg.rgbseq, dtype=dtype, device=dev)
     os.makedirs(cfg.logdir, exist_ok=True)
 

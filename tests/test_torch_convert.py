@@ -16,6 +16,7 @@ from srbh_tpu_torch import convert
 from srbh_tpu_torch.models.height_model import SRRegressClsFeature
 from srbh_tpu_torch.models.rrdbnet import RRDBNet
 from srbh_tpu_torch.models.swinir import SwinIR
+from test_torch_port_rules import _one_torch_thread  # noqa: F401 (autouse)
 
 
 def random_state_dict(module, seed=0):

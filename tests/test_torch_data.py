@@ -33,6 +33,7 @@ from srbh_tpu_torch.data.dataset import S12GlobeDataset
 from srbh_tpu_torch.data.pipeline import DataLoader
 from srbh_tpu_torch.ops import hierarchy as thir
 from srbh_tpu_torch.ops import normalize as tnorm
+from test_torch_port_rules import _one_torch_thread  # noqa: F401 (autouse)
 
 
 def test_hierarchy_lut_and_weights_equal_jax():

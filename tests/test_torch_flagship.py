@@ -23,6 +23,8 @@ from srbh_tpu.predict.predictor import make_city_step as jax_city_step
 from srbh_tpu_torch import convert, entry
 from srbh_tpu_torch.models.efficientnet import Conv2dSame, same_padding
 from srbh_tpu_torch.predict.predictor import make_city_step
+from test_torch_port_rules import _one_torch_thread  # noqa: F401 (autouse)
+
 
 TOL = 1e-4
 TILE, BATCH = 32, 2

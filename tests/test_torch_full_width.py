@@ -11,6 +11,7 @@ import jax.numpy as jnp
 
 from srbh_tpu import models as jmodels
 from srbh_tpu_torch import convert, entry
+from test_torch_port_rules import _one_torch_thread  # noqa: F401 (autouse)
 
 
 def _shape_map(state_dict):

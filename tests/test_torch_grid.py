@@ -15,6 +15,8 @@ from srbh_tpu.data import grid as jgrid
 from srbh_tpu.data import shapefile as jshp
 from srbh_tpu.data import tiff as jtiff
 from srbh_tpu_torch.data import grid, shapefile, tiff
+from test_torch_port_rules import _one_torch_thread  # noqa: F401 (autouse)
+
 
 GT = (500000.0, 10.0, 0.0, 4649776.0, 0.0, -10.0)
 CMAP = {0: (0, 0, 0, 255), 1: (0, 40, 255, 255), 6: (127, 0, 0, 255)}

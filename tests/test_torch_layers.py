@@ -17,6 +17,8 @@ from srbh_tpu_torch import convert
 from srbh_tpu_torch.models import layers as tlayers
 from srbh_tpu_torch.ops import resize as tresize
 from srbh_tpu_torch.ops import shuffle as tshuffle
+from test_torch_port_rules import _one_torch_thread  # noqa: F401 (autouse)
+
 
 TOL = 1e-5
 

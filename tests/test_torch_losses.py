@@ -17,6 +17,8 @@ import jax.numpy as jnp
 from srbh_tpu.losses import adaptive as J
 from srbh_tpu.ops.hierarchy import build_hierarchy_lut
 from srbh_tpu_torch.losses import adaptive as T
+from test_torch_port_rules import _one_torch_thread  # noqa: F401 (autouse)
+
 
 N, C, H, W = 2, 7, 8, 8
 VAL_RTOL = 1e-6

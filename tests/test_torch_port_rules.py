@@ -19,6 +19,18 @@ import torch
 
 import srbh_tpu_torch
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread for the module's tests: tier-1 runs six test
+    processes on eight cores, and torch's default of one thread a core made
+    them oversubscribe. Every ``tests/test_torch_*.py`` imports this."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 REPO = Path(__file__).resolve().parents[1]
 PKG = Path(srbh_tpu_torch.__file__).parent
 
@@ -42,7 +54,10 @@ def test_port_has_the_slice_modules():
                  "data.shapefile", "data.grid", "predict.colormap",
                  "predict.writers", "predict.stitcher",
                  "predict.device_stitcher", "predict.sliding",
-                 "predict.__main__"):
+                 "predict.__main__", "ops.aggregate", "ops.device_aug",
+                 "ops.usm", "losses.sr", "models.vgg", "models.discriminators",
+                 "train.sr_trainer", "train.sr_driver", "train.sr_config",
+                 "metrics.image"):
         assert f"srbh_tpu_torch.{name}" in mods
 
 
@@ -83,6 +98,8 @@ def _entry_points():
     from srbh_tpu_torch.tools import swinir_harness
     from srbh_tpu_torch.train import trainer
     from srbh_tpu_torch.train.config import TrainConfig
+    from srbh_tpu_torch.train.sr_driver import eval_sr, train_sr
+    from srbh_tpu_torch.train.sr_trainer import RealESRGANTrainer
     from srbh_tpu_torch.train.steps import make_train_step
 
     return {
@@ -98,6 +115,11 @@ def _entry_points():
         "predict_cities": lambda: predict_cities("", [], None, None, "", ""),
         "DeviceMosaicAccumulator": lambda: DeviceMosaicAccumulator(4, 4, 7),
         "predict.__main__.main": lambda: predict_cli.main([]),
+        "make_train_step(device_aug=True)": lambda: make_train_step(
+            torch.nn.Identity(), None, device_aug=True),
+        "RealESRGANTrainer.init": lambda: RealESRGANTrainer(num_block=1).init(),
+        "train_sr": lambda: train_sr(RealESRGANTrainer(), [], ""),
+        "eval_sr": lambda: eval_sr(RealESRGANTrainer(), None, []),
     }
 
 
@@ -106,7 +128,10 @@ def _entry_points():
                                   "make_train_step", "DataLoader",
                                   "predict_city", "predict_cities",
                                   "DeviceMosaicAccumulator",
-                                  "predict.__main__.main"])
+                                  "predict.__main__.main",
+                                  "make_train_step(device_aug=True)",
+                                  "RealESRGANTrainer.init", "train_sr",
+                                  "eval_sr"])
 def test_entry_points_need_a_card_by_default(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

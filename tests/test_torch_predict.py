@@ -31,6 +31,8 @@ from srbh_tpu_torch.data.tiff import TiffReader
 from srbh_tpu_torch.predict import __main__ as cli
 from srbh_tpu_torch.predict import predictor
 from srbh_tpu_torch.predict.predictor import make_city_step, predict_city
+from test_torch_port_rules import _one_torch_thread  # noqa: F401 (autouse)
+
 
 GT = (500000.0, 10.0, 0.0, 4649776.0, 0.0, -10.0)
 GEO_KEYS = np.array([1, 1, 0, 2, 1024, 0, 1, 1, 3072, 0, 1, 32650],

@@ -24,6 +24,8 @@ from srbh_tpu_torch.predict.device_stitcher import (
 )
 from srbh_tpu_torch.predict.sliding import predict_whole_image, window_anchors
 from srbh_tpu_torch.predict.stitcher import MosaicAccumulator
+from test_torch_port_rules import _one_torch_thread  # noqa: F401 (autouse)
+
 
 SRC_W, SRC_H, WIN, UP, C = 24, 20, 8, 4, 3
 T = WIN * UP

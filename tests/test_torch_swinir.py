@@ -21,6 +21,8 @@ from srbh_tpu.tools import swinir_harness as jharness
 from srbh_tpu_torch.convert import swinir_state_dict
 from srbh_tpu_torch.models import swinir as tswin
 from srbh_tpu_torch.tools import swinir_harness as tharness
+from test_torch_port_rules import _one_torch_thread  # noqa: F401 (autouse)
+
 
 TOL = 1e-4
 HEADS_CASES = [  # upsampler, upscale, resi_connection, RSTB depths

@@ -58,6 +58,8 @@ from srbh_tpu_torch.train.steps import (
     make_train_step,
     step_seed,
 )
+from test_torch_port_rules import _one_torch_thread  # noqa: F401 (autouse)
+
 
 ENC = "efficientnet-test"
 DEC = (32, 24, 16, 12, 8)

@@ -26,6 +26,7 @@ from srbh_tpu_torch.train import checkpoint
 from srbh_tpu_torch.train.config import TrainConfig, get_args
 from srbh_tpu_torch.train.state import TrainState
 from srbh_tpu_torch.train.trainer import build_models, main
+from test_torch_port_rules import _one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")
@@ -157,9 +158,7 @@ def test_get_args_takes_the_flags_of_train_py():
     assert get_args("beijing", []).trainlist == "datalist_beijing_train_0.7.csv"
 
 
-@pytest.mark.parametrize("flag,value", [("device_aug", True),
-                                        ("device_norm", True), ("fsdp", True),
-                                        ("remat", True),
+@pytest.mark.parametrize("flag,value", [("fsdp", True), ("remat", True),
                                         ("encoder_weights", "enc.npz"),
                                         ("model_variant", "nosuper")])
 def test_main_refuses_what_is_not_ported(data, flag, value):

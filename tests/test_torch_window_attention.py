@@ -18,6 +18,8 @@ import torch
 
 from srbh_tpu_torch.models.swinir import shift_attn_mask
 from srbh_tpu_torch.ops import window_attention as wa
+from test_torch_port_rules import _one_torch_thread  # noqa: F401 (autouse)
+
 
 TOL = 2e-5
 HEADS = 2
