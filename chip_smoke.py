@@ -5,14 +5,15 @@
 
 Runs from the root of the repository on a machine with one NVIDIA H100 and
 the CUDA toolkit (``nvcc``). It builds the Hopper window-attention kernel
-from ``srbh_tpu_torch/csrc/``, then drives the port's two serving paths and
-its two training paths:
+from ``srbh_tpu_torch/csrc/``, then drives the port's two serving paths, its
+two training paths and its two test entry points:
 
 1. the card: name, count, ``nvidia-smi`` name and power limit;
 2. the kernel build, with ``-Xptxas -v`` (registers, shared memory, spills;
    a spill fails the run);
 3. the kernel against its plain PyTorch version and a float64 reference at
-   SwinIR's shapes (d 10, 16, 30 and 64; N 49 and 64; nW up to 100;
+   SwinIR's shapes (d 10, 16, 30 and 64; N 49 and 64; nW up to 169, every
+   padded size phase 8's harness run gives it;
    contiguous inputs, strided views of a qkv projection, and bias and mask
    views off an 8-byte boundary; float32 and bfloat16), with device times
    (CUDA events around CUDA-graph replays of back-to-back calls) of the
@@ -68,23 +69,38 @@ its two training paths:
    alone, ms per batch of each stitcher's ``add_batch``, seconds of
    finalize and GeoTIFF writes, device and host peak memory, and a
    ``profile`` line of the device-stitch run;
-8. the Real-ESRGAN GAN: two steps of the tiny configuration (VGG19
-   perceptual on) on the card against the CPU (metrics within
-   1e-4 x (1 + |b|), spectral norms' u and sigma 1e-5, EMA 1e-6); then the
-   recipe's full width (RRDBNet-23 nf 64 gc 32, UNetDiscriminatorSN nf 64,
-   VGG19, batch 12, lq 64 -> gt 256, float32) through ``train_sr`` on 72
-   synthetic LR / HR GeoTIFF pairs (6 steps, 4 loader processes): finite
-   losses, every G and D parameter and every norm's u moved, the EMA apart
-   from G, ``net_g`` / ``net_d`` reloading identically (``load_sr_generator``);
-   ``eval_sr`` of 12 pairs writing ``acc1.txt``; the hand kernel's launches
-   over both (none); ms per step of ``train_sr`` in steady state (host
-   stamps as its steps return), eval images/s, and the GAN step alone on
-   batches on the card in bfloat16 and float32 (tiles/s, peak memory, a
-   ``profile`` of one step by kernel each, and by aten op with its shapes
-   in float32);
-   then the float32 step again with cuDNN's autotuning on
-   (``torch.backends.cudnn.benchmark``), in a process of its own
-   (``python3 chip_smoke.py --gan-autotuned`` runs just that).
+8. the test entry points: ``train.trainer.main_test`` of the tiny
+   configuration on the card against the CPU, on one ``torch.save``
+   checkpoint (RMSE and ``_he`` rows within
+   1e-4 x (1 + |b|), confusion counts within 0.1 % of the pixels, the three
+   files alike in lines and columns); ``python -m srbh_tpu_torch.train``
+   (the repository's ``train.py``: 20 epochs, then ``main_test`` of
+   ``checkpoint20`` on four test lists) at full width (RRDBNet-23 +
+   EfficientNet-B4, batch 16, float32) on 32 synthetic train tiles and 16
+   test tiles, with ``main_test``'s tiles/s at batch 1; ``--model_variant
+   nosuper`` for 2 epochs and its ``main_test``; ``--encoder_weights`` of
+   a random B4 state dict in efficientnet-pytorch's form (the grafted
+   encoder equal to the widened file, then a step); and the SwinIR harness's
+   ``main`` (``python -m srbh_tpu_torch.tools.swinir_harness``) on synthetic
+   PNGs: classical SR x4 and colour denoising, whole images and tiles
+   smaller than the padded image (16 of the x4 LR, 48 of the noisy
+   image), with the hand kernel's launches (36 a forward), ms per image, PSNR /
+   SSIM, the written outputs read back, and the kernel path against the
+   plain path on one image;
+9. the Real-ESRGAN GAN (its step and EMA forward run with
+   ``torch.backends.cudnn.benchmark`` on, and the flag is off again after
+   the phase): two steps of the tiny configuration (VGG19 perceptual on) on the card against the
+   CPU (metrics within 1e-4 x (1 + |b|), spectral norms' u and sigma 1e-5,
+   EMA 1e-6); then the recipe's full width (RRDBNet-23 nf 64 gc 32,
+   UNetDiscriminatorSN nf 64, VGG19, batch 12, lq 64 -> gt 256, float32)
+   through ``train_sr`` on 72 synthetic LR / HR GeoTIFF pairs (6 steps, 4
+   loader processes): finite losses, every G and D parameter and every
+   norm's u moved, the EMA apart from G, ``net_g`` / ``net_d`` reloading
+   identically (``load_sr_generator``); ``eval_sr`` of 12 pairs writing
+   ``acc1.txt``; the hand kernel's launches over both (none); ms per step
+   of ``train_sr`` in steady state (host stamps as its steps return), eval
+   images/s, and the GAN step alone on batches on the card in bfloat16 and
+   float32 (tiles/s, peak memory, a ``profile`` of one step by kernel).
 
 TF32 is off for the whole run (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32`` are False), so float32 means
@@ -128,6 +144,15 @@ TRAIN_BATCH, TRAIN_TILES, TRAIN_STEPS = 16, 64, 4
 LOOP_TILES = 512  # the steady-state loader timing: 32 batches of 16
 TIMED_STEPS = 6
 SWIN_BATCH = 8  # 64x64 tiles: B_ = 512 windows a call, 94 MB of q/k/v/o > L2
+# phase 8: the harness's HR images (square sides; the x4 LR a quarter, 24 or
+# 32 pixels once padded), each task's tile and overlap (a tile smaller than
+# every padded image, so each image is cut); the train.py sequence's split
+# (2 steps an epoch at batch 16) and loader processes; main_test card vs
+# CPU: |a - b| <= tol x (1 + |b|)
+HARNESS_SIDES = (64, 72, 80, 96)
+HARNESS_TILES = {"classical_sr": (16, 8), "color_dn": (48, 16)}
+ENTRY_TRAIN_TILES, ENTRY_TEST_TILES, ENTRY_WORKERS = 32, 16, 4
+ENTRY_TOL = 1e-4
 CITY_BATCH = 32
 CITY_STEPS = 4
 # phase 7: source pixels of the full-width city (20.48 km at 10 m: the order
@@ -202,14 +227,12 @@ def off_pair(t):
     return flat[1:].view(t.shape).copy_(t)
 
 
-def profile(label, fn, warm=True, host_ops=True, by_op=False):
+def profile(label, fn, warm=True, host_ops=True):
     """Device time by kernel for one call of ``fn`` (torch.profiler), and the
     device's idle share of the call's wall time, after one call unprofiled
     if ``warm``. ``host_ops=False`` traces the device only (a long call's
-    host ops take the profiler minutes to sort). ``by_op`` also prints the
-    aten ops with the most device time of their own, by input shapes.
-    Returns (ms, kernel name) rows, empty if the profiler saw no device
-    time."""
+    host ops take the profiler minutes to sort). Returns (ms, kernel name)
+    rows, empty if the profiler saw no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -217,8 +240,8 @@ def profile(label, fn, warm=True, host_ops=True, by_op=False):
     if warm:
         fn()
     torch.cuda.synchronize()
-    activities = [ProfilerActivity.CUDA] + [ProfilerActivity.CPU] * (host_ops or by_op)
-    with torch_profile(activities=activities, record_shapes=by_op) as prof:
+    activities = [ProfilerActivity.CUDA] + [ProfilerActivity.CPU] * host_ops
+    with torch_profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -234,14 +257,6 @@ def profile(label, fn, warm=True, host_ops=True, by_op=False):
         f"busy {busy:.3f} ms, idle share {max(0.0, 1 - busy / wall_ms):.3f}")
     for ms, key in rows[:8]:
         log(f"[profile]   {ms:9.3f} ms {100 * ms / busy:5.1f}%  {key[:90]}")
-    if by_op:
-        ops = sorted(((e.self_device_time_total / 1e3, e) for e in
-                      prof.key_averages(group_by_input_shape=True)
-                      if e.key.startswith("aten::") and e.self_device_time_total > 0),
-                     key=lambda r: -r[0])
-        for ms, e in ops[:8]:
-            log(f"[profile]   op {ms:9.3f} ms {100 * ms / busy:5.1f}%  {e.key} "
-                f"x{e.count} {str(e.input_shapes)[:150]}")
     return rows
 
 
@@ -290,7 +305,6 @@ def phase_kernel(wa, shift_attn_mask, timing):
         ("classical_masked", 6, 64 * b, 64, 30, 64, 8, f32, "contiguous", True),
         ("classical_qkv", 6, 64 * b, 64, 30, None, 8, f32, "qkv", True),
         ("classical_masked_qkv", 6, 64 * b, 64, 30, 64, 8, f32, "qkv", True),
-        ("padded72_nW81", 6, 81 * 2, 64, 30, 72, 8, f32, "contiguous", False),
         ("jpeg_car_N49_nW100", 6, 100 * 2, 49, 30, 70, 7, f32, "contiguous", False),
         ("d16", 4, 16 * 4, 64, 16, 32, 8, f32, "contiguous", False),
         ("d16_offset", 4, 16 * 4, 64, 16, 32, 8, f32, "offset", False),
@@ -303,6 +317,12 @@ def phase_kernel(wa, shift_attn_mask, timing):
         ("jpeg_car_N49_nW100_bf16", 6, 100 * 2, 49, 30, 70, 7, bf16, "contiguous", False),
         ("d64_bf16", 3, 16 * 4, 64, 64, 32, 8, bf16, "contiguous", False),
     ]
+    # every padded image (or tile) phase 8's harness gives the kernel, batch 1
+    pad = lambda n: (n // 8 + 1) * 8
+    sides = sorted({pad(n // 4) for n in HARNESS_SIDES} | {pad(n) for n in HARNESS_SIDES}
+                   | {tile for tile, _ in HARNESS_TILES.values()})
+    cases += [(f"harness_{side}_nW{(side // 8) ** 2}", 6, (side // 8) ** 2, 64, 30,
+               side, 8, f32, "contiguous", False) for side in sides]
     rows = {}
     for name, h, b_, n, d, side, ws, dt, layout, timed in cases:
         mk = lambda *s: torch.tensor(rng.normal(size=s).astype(np.float32),
@@ -1276,8 +1296,387 @@ def phase_city(wa, entry, smi):
     return {"launches": launches, **timed}
 
 
+def write_entry_split(root):
+    """``ENTRY_TRAIN_TILES`` + ``ENTRY_TEST_TILES`` synthetic tiles and the
+    lists of train.py's globe run: train, validation and test, and the test
+    lists of china, eu and usa (the same test tiles)."""
+    write_tiles(root, ENTRY_TRAIN_TILES + ENTRY_TEST_TILES)
+    names = [f"t_{i}.tif" for i in range(ENTRY_TRAIN_TILES + ENTRY_TEST_TILES)]
+    lists = {"datalist_globe_train_0.7.csv": names[:ENTRY_TRAIN_TILES],
+             "datalist_globe_test_0.7_val_0.3.csv": names[ENTRY_TRAIN_TILES:]}
+    for city in ("globe", "china", "eu", "usa"):
+        lists[f"datalist_{city}_test_0.7_test_0.3.csv"] = names[ENTRY_TRAIN_TILES:]
+    for listname, rows in lists.items():
+        with open(os.path.join(root, listname), "w") as f:
+            f.writelines(f"{name},s1c,s2c,bhc\n" for name in rows)
+    return ["--datapath", root, "--datastats", root,
+            "--preweight", os.path.join(root, "bh_stats.txt"), "--s1dir", "s1c",
+            "--s2dir", "s2c", "--bhdir", "bhc",
+            "--logdirhr", os.path.join(root, "no_sr_checkpoint"),
+            "--num_workers", str(ENTRY_WORKERS)]
+
+
+def read_acc(logdir, stem):
+    """(rmse, seg rows, he rows) of ``main_test``'s three files; NaN for an
+    empty field."""
+    num = lambda v: float(v) if v else float("nan")
+    rmse = float(open(os.path.join(logdir, stem + ".txt")).read())
+    seg = [line.split(",") for line in
+           open(os.path.join(logdir, stem + "_seg.csv")).read().splitlines()]
+    he = [line.split(",") for line in
+          open(os.path.join(logdir, stem + "_he.csv")).read().splitlines()]
+    if he[0] != ["rmse", "mae", "me", "count"]:
+        raise AssertionError(f"{stem}_he.csv header {he[0]}")
+    return (rmse, [[num(v) for v in r[:-1]] + [r[-1]] for r in seg],
+            np.array([[num(v) for v in r] for r in he[1:]]))
+
+
+def main_test_tiny_card_vs_cpu(root, argv):
+    """``main_test`` of the tiny configuration on the card and on the CPU
+    from one checkpoint ``checkpoint20``."""
+    from srbh_tpu_torch.train import trainer
+    from srbh_tpu_torch.train.config import get_args
+
+    cfg = get_args(argv=argv + [
+        "--logdir", os.path.join(root, "tiny"), "--checkpoint", "checkpoint20",
+        "--encoder_name", "efficientnet-test", "--super_mid", "8",
+        "--sr_num_block", "1", "--sr_num_feat", "8", "--sr_num_grow", "8"])
+    model, _ = trainer.build_models(cfg)
+    gen = torch.Generator().manual_seed(12)
+    with torch.no_grad():  # running statistics drawn, heights above 0
+        for k, v in model.state_dict().items():
+            if k.endswith("running_mean"):
+                v.normal_(0, 0.1, generator=gen)
+            elif k.endswith("running_var"):
+                v.uniform_(0.5, 1.5, generator=gen)
+        model.reg.conv_last.bias.fill_(4.0)
+    os.makedirs(cfg.logdir)
+    torch.save({"epoch": 20, "best_rmse": float("inf"), "step": 0,
+                "model": model.state_dict(), "log_vars": None},
+               os.path.join(cfg.logdir, "checkpoint20"))
+    res = {dev: trainer.main_test(cfg, num_sample=0, suffix=dev, device=dev)
+           for dev in ("cpu", "cuda")}
+    (r_c, seg_c, he_c), (r_g, seg_g, he_g) = (read_acc(cfg.logdir, f"acc20{dev}_0")
+                                              for dev in ("cpu", "cuda"))
+    shape = lambda rows: [len(r) for r in rows]
+    if shape(seg_c) != shape(seg_g) or [r[-1] for r in seg_c] != [r[-1] for r in seg_g] \
+            or he_c.shape != (9, 4) or he_g.shape != (9, 4):
+        raise AssertionError("main_test files differ in lines or columns card vs CPU")
+    ncls = len(seg_c) - 6
+    cm_c, cm_g = (np.array([r[:ncls] for r in seg[6:]]) for seg in (seg_c, seg_g))
+    pixels = cm_c.sum()
+    moved = np.abs(cm_c - cm_g).sum() / 2
+    err_rmse = abs(r_g - r_c) / (1 + abs(r_c))
+    err_he = float(np.nanmax(np.abs(he_g - he_c) / (1 + np.abs(he_c))))
+    log(f"[entry] tiny main_test from one checkpoint20, card vs CPU, "
+        f"{ENTRY_TEST_TILES} tiles at batch 1: rmse {r_g:.6f} / {r_c:.6f} "
+        f"(|a-b|/(1+|b|) {err_rmse:.3e}), _he rows {err_he:.3e} (tol "
+        f"{ENTRY_TOL:.0e}); confusion counts moved {moved:g} of {pixels:g} pixels "
+        f"(limit {QUANT_SHARE:.0e}); oa {res['cuda']['oa']:.6f} / {res['cpu']['oa']:.6f}")
+    if not (err_rmse <= ENTRY_TOL and err_he <= ENTRY_TOL and cm_g.sum() == pixels
+            and moved <= QUANT_SHARE * pixels
+            and (np.isnan(he_c) == np.isnan(he_g)).all()):
+        raise AssertionError("the tiny main_test disagrees card vs CPU")
+
+
+def stamp_predict_steps(trainer, stamps):
+    """Have ``trainer.main_test``'s predict steps stamp the host clock at
+    their second and last call, both synchronised: the steady-state rate of
+    the test loop, loader and metrics included. ``stamps`` gets one
+    ``[t_second, t_last, calls, step]`` a ``main_test``. Returns the
+    undo."""
+    inner = trainer.make_predict_step
+
+    def stamped(*args, **kwargs):
+        step = inner(*args, **kwargs)
+        row = [None, None, 0, step]
+        stamps.append(row)
+
+        def run(image):
+            out = step(image)
+            row[2] += 1
+            if row[2] in (2, ENTRY_TEST_TILES):
+                torch.cuda.synchronize()
+                row[0 if row[2] == 2 else 1] = time.perf_counter()
+            return out
+
+        return run
+
+    trainer.make_predict_step = stamped
+    return lambda: setattr(trainer, "make_predict_step", inner)
+
+
+def train_py_sequence(wa, root, argv, smi):
+    """``python -m srbh_tpu_torch.train`` at full width: 20 epochs, then
+    ``main_test`` of ``checkpoint20`` on the globe, china, eu and usa test
+    lists."""
+    from srbh_tpu_torch.train import __main__ as train_cli
+    from srbh_tpu_torch.train import trainer
+    from srbh_tpu_torch.train.checkpoint import load_checkpoint
+
+    logdir = os.path.join(root, "globe")
+    stamps, timed = [], {}
+    undo = stamp_predict_steps(trainer, stamps)
+    inner_main = trainer.main
+
+    def timed_main(*args, **kwargs):
+        t = time.perf_counter()
+        out = inner_main(*args, **kwargs)
+        torch.cuda.synchronize()
+        timed["main_s"] = time.perf_counter() - t
+        return out
+
+    trainer.main = timed_main
+    wa.window_attention.launches = 0
+    t0 = time.perf_counter()
+    results = train_cli.main(argv + ["--logdir", logdir])
+    timed["sequence_s"] = time.perf_counter() - t0
+    launches = wa.window_attention.launches
+    trainer.main = inner_main
+    undo()
+    payload = load_checkpoint(os.path.join(logdir, "checkpoint20"))
+    rows = []
+    for suffix, num in (("", 100), ("china", 0), ("eu", 0), ("usa", 0)):
+        rmse, seg, he = read_acc(logdir, f"acc20{suffix}_{num}")
+        cm = np.array([r[:-1] for r in seg[6:]])
+        rows.append((suffix or "globe", rmse, len(seg), he.shape))
+        # precision and IoU of a class random weights never predict are NaN
+        if not (np.isfinite(rmse) and np.isfinite(he).all() and he.shape == (9, 4)
+                and cm.sum() == ENTRY_TEST_TILES * 256 * 256):
+            raise AssertionError(f"acc20{suffix}_{num}: rmse {rmse}, he {he.shape}, "
+                                 f"{cm.sum()} pixels")
+    rates = [(ENTRY_TEST_TILES - 2) / (row[1] - row[0]) for row in stamps]
+    timed.update(main_test_tiles_per_s=rates, launches=launches)
+    log(f"[entry] python -m srbh_tpu_torch.train, RRDBNet-23 + EfficientNet-B4, batch "
+        f"16, float32, {ENTRY_TRAIN_TILES} train / {ENTRY_TEST_TILES} test tiles, "
+        f"{ENTRY_WORKERS} loader processes: {timed['sequence_s']:.2f} s (main, 20 epochs "
+        f"of 2 steps + validation + checkpoints: {timed['main_s']:.2f} s); checkpoint20 "
+        f"epoch {payload['epoch']}, step {payload['step']}; acc files (list, rmse, seg "
+        f"rows, he shape): {rows}; main_test at batch 1 in steady state: "
+        f"{[round(r, 2) for r in rates]} tiles/s; window_attention launches: "
+        f"{launches}; {smi}")
+    if payload["epoch"] != 20 or payload["step"] != 40 or len(results) != 4 \
+            or len(stamps) != 4 or any(row[2] != ENTRY_TEST_TILES for row in stamps):
+        raise AssertionError(f"the train.py sequence: epoch {payload['epoch']}, "
+                             f"step {payload['step']}, {len(results)} tests")
+    image = torch.tensor(np.random.default_rng(15).uniform(0, 1, (1, 64, 64, 8))
+                         .astype(np.float32), device="cuda")
+    profile("main_test's predict step, batch 1, full width, float32",
+            lambda: stamps[-1][3](image))
+    return timed
+
+
+def nosuper_entry(wa, root, argv):
+    """``--model_variant nosuper``: 2 epochs, then ``main_test``."""
+    from srbh_tpu_torch.train import trainer
+    from srbh_tpu_torch.train.config import get_args
+
+    cfg = get_args(argv=argv + ["--logdir", os.path.join(root, "nosuper"),
+                                "--model_variant", "nosuper", "--maxepoch", "2"])
+    wa.window_attention.launches = 0
+    t0 = time.perf_counter()
+    state = trainer.main(cfg, device="cuda")
+    res = trainer.main_test(cfg, num_sample=0, suffix="nosuper")
+    wall = time.perf_counter() - t0
+    launches = wa.window_attention.launches
+    log(f"[entry] trainer.main --model_variant nosuper, 2 epochs + main_test: "
+        f"{wall:.2f} s, step {state.step}, rmse {res['rmse']:.4f}, oa "
+        f"{res['oa']:.4f}; window_attention launches: {launches}")
+    if state.step != 4 or state.sr_model is not None or not np.isfinite(res["rmse"]):
+        raise AssertionError(f"nosuper: step {state.step}, {res}")
+    return launches
+
+
+def imagenet_state_dict(name, seed):
+    """A random ImageNet state dict of EfficientNet ``name`` in
+    efficientnet-pytorch's form: a 3-channel stem, drawn BatchNorm
+    statistics, the classifier head."""
+    from srbh_tpu_torch.models.efficientnet import EfficientNetEncoder
+    from srbh_tpu_torch.models.layers import init_weights
+
+    gen = torch.Generator().manual_seed(seed)
+    sd = init_weights(EfficientNetEncoder(name, 3), gen).state_dict()
+    for k, v in sd.items():
+        if k.endswith("running_mean"):
+            v.normal_(0, 0.1, generator=gen)
+        elif k.endswith("running_var"):
+            v.uniform_(0.5, 1.5, generator=gen)
+    last = len({k.split(".")[1] for k in sd if k.startswith("_blocks.")}) - 1
+    width = sd[f"_blocks.{last}._project_conv.weight"].shape[0]
+    sd.update({"_conv_head.weight": torch.randn(1792, width, 1, 1, generator=gen),
+               "_bn1.weight": torch.ones(1792), "_bn1.bias": torch.zeros(1792),
+               "_bn1.running_mean": torch.zeros(1792), "_bn1.running_var": torch.ones(1792),
+               "_fc.weight": torch.randn(1000, 1792, generator=gen),
+               "_fc.bias": torch.zeros(1000)})
+    return sd
+
+
+def encoder_weights_entry(root, argv):
+    """``--encoder_weights`` of a torch file: the grafted encoder equals the
+    file's (its stem widened to 8 channels), and ``trainer.main`` grafts it
+    on a fresh run and takes a step."""
+    import contextlib
+    import io
+
+    from srbh_tpu_torch.convert import widen_stem
+    from srbh_tpu_torch.train import trainer
+    from srbh_tpu_torch.train.config import get_args
+
+    path = os.path.join(root, "imagenet.pth")
+    cfg = get_args(argv=argv + ["--logdir", os.path.join(root, "enc"),
+                                "--encoder_weights", path, "--maxepoch", "1"])
+    sd = imagenet_state_dict(cfg.encoder_name, 13)
+    torch.save(sd, path)
+    model, _ = trainer.build_models(cfg)
+    trainer.load_encoder_weights(cfg, model)
+    got = model.encoder.state_dict()
+    want = {k: widen_stem(v, 8) if k == "_conv_stem.weight" else v
+            for k, v in sd.items() if k in got}
+    diff = [k for k, v in want.items() if not torch.equal(got[k], v.to(got[k].dtype))]
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        state = trainer.main(cfg, max_steps_per_epoch=1, device="cuda")
+    lines = printed.getvalue().strip().splitlines()
+    for line in lines:
+        log(line)
+    log(f"[entry] --encoder_weights: {cfg.encoder_name} in efficientnet-pytorch's "
+        f"form (3-channel stem, classifier head): {len(got)} encoder tensors, "
+        f"{len(diff)} differ from the widened file; trainer.main step {state.step}")
+    if diff or len(want) != len(got) or state.step != 1 or \
+            f"=> encoder initialised from {path}" not in lines:
+        raise AssertionError(f"--encoder_weights: {diff[:5]}, step {state.step}")
+
+
+def write_pngs(root):
+    """Smooth BGR PNGs of ``HARNESS_SIDES`` (``gt``) and their 4x4 block
+    means (``lq``: ``<name>x4.png``), written by ``data/png.py``."""
+    from srbh_tpu_torch.data import png
+
+    rng = np.random.default_rng(14)
+    for d in ("gt", "lq"):
+        os.makedirs(os.path.join(root, d))
+    for i, side in enumerate(HARNESS_SIDES):
+        yy, xx = np.mgrid[:side, :side]
+        hr = np.stack([128 + 90 * np.sin((xx + 5 * i) / (6.0 + c)) * np.cos(yy / (7.0 + i))
+                       for c in range(3)], -1)
+        hr = np.clip(hr + rng.normal(0, 6, hr.shape), 0, 255).astype(np.uint8)
+        lr = hr.reshape(side // 4, 4, side // 4, 4, 3).mean((1, 3)).round().astype(np.uint8)
+        png.imwrite(os.path.join(root, "gt", f"im{i}.png"), hr)
+        png.imwrite(os.path.join(root, "lq", f"im{i}x4.png"), lr)
+
+
+def harness_entry(wa, root, smi):
+    """``swinir_harness.main`` (``python -m srbh_tpu_torch.tools.
+    swinir_harness``) for classical SR x4 and colour denoising at full width,
+    whole images and the task's tiles (``HARNESS_TILES``), from state dicts
+    saved here; then the kernel path against the plain path on one image."""
+    from srbh_tpu_torch.data import png
+    from srbh_tpu_torch.tools import swinir_harness as harness
+
+    write_pngs(root)
+    gt, lq = os.path.join(root, "gt"), os.path.join(root, "lq")
+    inner_apply, calls = harness.apply, []
+
+    def timed_apply(model, x):
+        t = time.perf_counter()
+        out = inner_apply(model, x)
+        torch.cuda.synchronize()
+        calls.append(time.perf_counter() - t)
+        return out
+
+    harness.apply = timed_apply
+    runs, launches = [], 0
+    for task, scale in (("classical_sr", 4), ("color_dn", 1)):
+        weights = os.path.join(root, f"{task}.pth")
+        torch.save(harness.define_model(task, scale, device="cpu", seed=1).state_dict(),
+                   weights)
+        tile_size, overlap = HARNESS_TILES[task]
+        for tile in (None, tile_size):
+            argv = ["--task", task, "--scale", str(scale), "--folder_gt", gt,
+                    "--folder_lq", lq, "--model_path", weights]
+            run_dir = os.path.join(root, f"{task}_{tile}")
+            out = os.path.join(run_dir, "results", f"swinir_{task}_x{scale}")
+            os.makedirs(run_dir)
+            here = os.getcwd()
+            os.chdir(run_dir)  # main writes to results/ in the working directory
+            calls.clear()
+            wa.window_attention.launches = 0
+            t0 = time.perf_counter()
+            res = harness.main(argv + (["--tile", str(tile), "--tile_overlap",
+                                        str(overlap)] if tile else []))
+            wall = time.perf_counter() - t0
+            os.chdir(here)
+            n = wa.window_attention.launches
+            launches += n
+            shapes = [png.imread(os.path.join(out, f"im{i}_SwinIR.png")).shape
+                      for i in range(len(HARNESS_SIDES))]
+            row = dict(task=task, tile=tile, forwards=len(calls), launches=n,
+                       ms_per_image=1e3 * sum(calls) / len(HARNESS_SIDES),
+                       ms_per_forward_median=1e3 * float(np.median(calls)),
+                       main_s=wall, psnr=res["psnr"], ssim=res["ssim"])
+            runs.append(row)
+            log(f"[entry] swinir_harness.main {task} x{scale}, tile {tile}, "
+                f"{len(HARNESS_SIDES)} images of {HARNESS_SIDES} px: {row}; outputs "
+                f"{shapes}; {smi}")
+            # whole images: a forward each; tiles: more than one an image
+            cut = len(calls) > len(HARNESS_SIDES) if tile else \
+                len(calls) == len(HARNESS_SIDES)
+            if n != 36 * len(calls) or shapes != [(s, s, 3) for s in HARNESS_SIDES] \
+                    or not cut or not np.isfinite([res["psnr"], res["ssim"]]).all():
+                raise AssertionError(f"swinir harness {task} tile {tile}: {row}")
+    harness.apply = inner_apply
+
+    # one image through the kernel path and the plain path
+    model = harness.define_model("classical_sr", 4, device="cpu")
+    harness.load_weights(model, os.path.join(root, "classical_sr.pth"), "classical_sr")
+    model.cuda()
+    lr = png.imread(os.path.join(lq, "im3x4.png"))[..., ::-1].astype(np.float32) / 255
+    x = harness.pad_to_window_multiple(lr, 8)[None]
+    outs = []
+    for use_kernel in (True, False):
+        for m in model.modules():
+            if hasattr(m, "use_kernel"):
+                m.use_kernel = use_kernel
+        outs.append(harness.apply(model, np.ascontiguousarray(x)))
+    diff = (outs[0] - outs[1]).abs().max().item()
+    scale = max(1.0, outs[1].abs().max().item())
+    log(f"[entry] harness image {x.shape[1]}x{x.shape[2]} (nW {(x.shape[1] // 8) ** 2}): "
+        f"kernel vs plain max_abs_diff={diff:.3e} (tol {SWIN_TOL:.0e} x {scale:.3f})")
+    if not diff <= SWIN_TOL * scale:
+        raise AssertionError("the harness's kernel path disagrees with the plain path")
+    return runs, launches
+
+
+def phase_entry(wa, smi):
+    """Phase 8: the test entry points."""
+    torch.cuda.empty_cache()
+    log(f"[entry] memory allocated at the start: "
+        f"{torch.cuda.memory_allocated() / 2**20:.1f} MiB")
+    t_phase = time.perf_counter()
+    timed, stages = {}, []
+    with tempfile.TemporaryDirectory() as root:
+        argv = write_entry_split(root)
+        stages.append(("split written", time.perf_counter() - t_phase))
+        main_test_tiny_card_vs_cpu(root, argv)
+        stages.append(("tiny main_test card vs CPU", time.perf_counter() - t_phase))
+        timed["sequence"] = train_py_sequence(wa, root, argv, smi)
+        stages.append(("train.py sequence", time.perf_counter() - t_phase))
+        timed["nosuper_launches"] = nosuper_entry(wa, root, argv)
+        stages.append(("nosuper", time.perf_counter() - t_phase))
+        encoder_weights_entry(root, argv)
+        stages.append(("encoder weights", time.perf_counter() - t_phase))
+        timed["harness"], timed["harness_launches"] = harness_entry(
+            wa, os.path.join(root, "pngs"), smi)
+        stages.append(("swinir harness", time.perf_counter() - t_phase))
+    torch.cuda.empty_cache()
+    timed["phase_s"] = time.perf_counter() - t_phase
+    timed["stages_s"] = [(name, round(t, 2)) for name, t in stages]
+    log(f"[entry] stages (name, seconds since the phase began): {timed['stages_s']}; "
+        f"phase {timed['phase_s']:.1f} s")
+    return timed
+
+
 GAN_BATCH, GAN_LQ, GAN_PAIRS, GAN_EVAL_PAIRS, GAN_TIMED = 12, 64, 72, 12, 4
-AUTOTUNED_ARG = "--gan-autotuned"  # the float32 GAN step with cudnn.benchmark
 # the GAN step card vs CPU: the tolerances of tests/test_torch_gan_step.py
 GAN_TOL, GAN_SN_TOL, GAN_EMA_TOL = 1e-4, 1e-5, 1e-6
 # G and D parameters beyond 1e-4 per step card vs CPU: share of elements
@@ -1406,13 +1805,10 @@ def check_gan_reload(trainer, state, logdir):
         raise AssertionError(f"SR checkpoints do not reload identically: {diff[:5]}")
 
 
-def time_gan_steps(smi, dtypes=(torch.bfloat16, torch.float32), label="",
-                   by_op=(torch.float32,)):
+def time_gan_steps(smi):
     """tiles/s of the full-width GAN step alone on batches already on the
-    card in each of ``dtypes``, peak memory and a profile of one step by
-    kernel, and for the ``by_op`` dtypes by aten op with its input shapes
-    too (the last: its host-side trace takes the profiler tens of seconds
-    to sort, and the timings should not follow it)."""
+    card in bfloat16 and float32 (the step turns cuDNN's autotuning on for
+    itself), peak memory and a profile of one step by kernel each."""
     from srbh_tpu_torch.train.sr_trainer import RealESRGANTrainer
 
     rng = np.random.default_rng(10)
@@ -1421,8 +1817,8 @@ def time_gan_steps(smi, dtypes=(torch.bfloat16, torch.float32), label="",
                 torch.tensor(rng.uniform(0, 1, (GAN_BATCH, 4 * GAN_LQ, 4 * GAN_LQ, 3))
                              .astype(np.float32), device="cuda")) for _ in range(2)]
     results = {}
-    for dtype in dtypes:
-        name = str(dtype)[6:] + label
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype)[6:]
         trainer = RealESRGANTrainer(dtype=dtype)
         state = trainer.init(0, (GAN_BATCH, GAN_LQ, GAN_LQ, 3), device="cuda")
         step = trainer.make_step()
@@ -1446,26 +1842,10 @@ def time_gan_steps(smi, dtypes=(torch.bfloat16, torch.float32), label="",
             f"{GAN_TIMED} steps), peak {peak:.2f} GiB, l_g_total "
             f"{m['l_g_total'].item():.4f}; {smi}")
         profile(f"GAN step {name}, batch {GAN_BATCH}", lambda: step(state, *batches[0]),
-                warm=False, host_ops=False, by_op=dtype in by_op)
+                warm=False, host_ops=False)
         del state, step, trainer
         torch.cuda.empty_cache()
     return results
-
-
-def gan_step_autotuned():
-    """The float32 GAN step alone with ``torch.backends.cudnn.benchmark`` on
-    (cuDNN times its algorithms for each convolution instead of taking its
-    heuristics' choice), in a process of its own: PyTorch keeps the plan
-    it chose for a convolution's shapes, so the flag changes nothing for
-    shapes a process has run. Returns its ``time_gan_steps`` numbers."""
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__), AUTOTUNED_ARG],
-                          capture_output=True, text=True, timeout=600)
-    lines = proc.stdout.splitlines()
-    for line in lines[:-1]:
-        log(line)
-    if proc.returncode != 0:
-        raise AssertionError(f"the autotuned GAN step failed: {proc.stderr[-3000:]}")
-    return json.loads(lines[-1])
 
 
 def phase_gan(wa, smi):
@@ -1559,30 +1939,20 @@ def phase_gan(wa, smi):
     t0 = time.perf_counter()
     timed["steps_alone"] = time_gan_steps(smi)
     timed["steps_alone_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    timed["steps_alone"].update(gan_step_autotuned())
-    timed["autotuned_s"] = time.perf_counter() - t0
     timed["phase_s"] = time.perf_counter() - t_phase
-    log(f"[gan] phase {timed['phase_s']:.1f} s")
+    log(f"[gan] phase {timed['phase_s']:.1f} s; cudnn.benchmark after it: "
+        f"{torch.backends.cudnn.benchmark}")
+    if torch.backends.cudnn.benchmark:
+        raise AssertionError("the GAN step left cudnn.benchmark on")
     return {"launches": launches, **timed}
 
 
-def main_autotuned(smi):
-    """``chip_smoke.py --gan-autotuned``: the float32 GAN step alone with
-    cuDNN's autotuning on; its numbers as the last line."""
-    torch.backends.cudnn.benchmark = True
-    print(json.dumps(time_gan_steps(smi, (torch.float32,), ", cudnn.benchmark", by_op=())))
-    return 0
-
-
-def main(argv) -> int:
+def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    if argv == [AUTOTUNED_ARG]:
-        return main_autotuned(nvidia_smi())
     from srbh_tpu_torch import entry
     from srbh_tpu_torch.models.swinir import shift_attn_mask
     from srbh_tpu_torch.ops import window_attention as wa
@@ -1599,6 +1969,8 @@ def main(argv) -> int:
     log(f"[train] summary {json.dumps(train)}")
     city = phase_city(wa, entry, smi)
     log(f"[city] summary {json.dumps(city)}")
+    entry_points = phase_entry(wa, smi)
+    log(f"[entry] summary {json.dumps(entry_points)}")
     gan = phase_gan(wa, smi)
     log(f"[gan] summary {json.dumps(gan)}")
 
@@ -1615,6 +1987,9 @@ def main(argv) -> int:
                              "train": train["launches"],
                              "train_device_norm": train["device_aug_launches"],
                              "city": city["launches"],
+                             "main_test": entry_points["sequence"]["launches"],
+                             "nosuper": entry_points["nosuper_launches"],
+                             "swinir_harness_main": entry_points["harness_launches"],
                              "gan": gan["launches"]},
         "max_abs_err": max(r["max_abs_err"] for n, r in rows.items()
                            if "bf16" not in n),
@@ -1647,4 +2022,4 @@ def main(argv) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
+    sys.exit(main())

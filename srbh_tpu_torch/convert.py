@@ -17,6 +17,11 @@ into the port's modules with ``load_state_dict``. Layout rules:
   it);
 * optax Adam states (``count``, ``mu``, ``nu``) -> torch Adam states
   (``step``, ``exp_avg``, ``exp_avg_sq``), through the same name mapping.
+
+It also reads the JAX package's ``.npz`` files (:func:`load_tree_npz`) and
+starts an encoder from ImageNet weights (:func:`graft_encoder`): an
+efficientnet-pytorch state dict, or the JAX package's encoder ``.npz``
+through :func:`encoder_state_dict_from_npz`.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
+from torch import nn
 
 from srbh_tpu_torch.models.efficientnet import (
     _B0_STAGES,
@@ -33,6 +39,27 @@ from srbh_tpu_torch.models.efficientnet import (
 from srbh_tpu_torch.models.vgg import VGG19_CFG
 
 StateDict = Dict[str, torch.Tensor]
+
+_NPZ_SEP, _NPZ_MARKER = "\x1f", "__srbh-npz-sep-1f__"
+# efficientnet-pytorch's classifier head, which the U-Net's encoder lacks
+_IMAGENET_HEAD = ("_conv_head.", "_bn1.", "_fc.")
+
+
+def load_tree_npz(path: str) -> dict:
+    """A JAX ``.npz`` (``srbh_tpu.train.convert.save_tree_npz``: a flat npz
+    whose keys join the tree's path with ``\x1f``, or ``/`` in older
+    files) as the nested dict it was saved from."""
+    tree: dict = {}
+    with np.load(path) as z:
+        keys = [k for k in z.files if k != _NPZ_MARKER]
+        new_format = _NPZ_MARKER in z.files or any(_NPZ_SEP in k for k in keys)
+        for k in keys:
+            node = tree
+            *parents, leaf = k.split(_NPZ_SEP if new_format else "/")
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = z[k]
+    return tree
 
 
 def _t(a) -> torch.Tensor:
@@ -179,33 +206,40 @@ def _basic_block(sd: StateDict, prefix: str, p: Mapping, s: Mapping) -> None:
         _bn(sd, f"{prefix}.downsample.1", p["down_bn"], s["down_bn"])
 
 
-def height_model_state_dict(variables: Mapping,
-                            encoder_name: str = "efficientnet-b4",
-                            isaggre: bool = True) -> StateDict:
-    """SRRegressClsFeature: ``encoder.*`` (efficientnet-pytorch names),
-    ``decoder{1,2}.blocks.{i}.conv{1,2}.{0,1}``, ``hrfeat.{i}.*``,
-    ``{reg,seg}.upsampler.{2k}/fuse.{i}/conv_last`` and ``aggre_height``."""
-    p, s = variables["params"], variables["batch_stats"]
-    sd: StateDict = {}
-    ep, es = p["encoder"], s["encoder"]
-    _conv(sd, "encoder._conv_stem", ep["stem_conv"])
-    _bn(sd, "encoder._bn0", ep["stem_bn"], es["stem_bn"])
+def _encoder_blocks(encoder_name: str):
+    """The JAX name of each MBConv block of ``encoder_name`` in order, and
+    whether it has an expansion conv."""
     _, depth, _ = SCALING[encoder_name]
-    tn = 0
-    for si, (expand, *_rest, base_r) in enumerate(_B0_STAGES, 1):
-        for bi in range(round_repeats(base_r, depth)):
-            t = f"encoder._blocks.{tn}"
-            bp, bs = ep[f"blocks_{si}_{bi}"], es[f"blocks_{si}_{bi}"]
-            if expand != 1:
-                _conv(sd, f"{t}._expand_conv", bp["expand_conv"])
-                _bn(sd, f"{t}._bn0", bp["expand_bn"], bs["expand_bn"])
-            _conv(sd, f"{t}._depthwise_conv", bp["dw_conv"])
-            _bn(sd, f"{t}._bn1", bp["dw_bn"], bs["dw_bn"])
-            _conv(sd, f"{t}._se_reduce", bp["se_reduce"])
-            _conv(sd, f"{t}._se_expand", bp["se_expand"])
-            _conv(sd, f"{t}._project_conv", bp["project_conv"])
-            _bn(sd, f"{t}._bn2", bp["project_bn"], bs["project_bn"])
-            tn += 1
+    return [(f"blocks_{si}_{bi}", expand != 1)
+            for si, (expand, *_rest, base_r) in enumerate(_B0_STAGES, 1)
+            for bi in range(round_repeats(base_r, depth))]
+
+
+def _encoder_state_dict(sd: StateDict, prefix: str, ep: Mapping, es: Mapping,
+                        encoder_name: str) -> None:
+    """The EfficientNet encoder with efficientnet-pytorch's names:
+    ``{prefix}_conv_stem``, ``{prefix}_bn0``, ``{prefix}_blocks.{n}.*``."""
+    _conv(sd, f"{prefix}_conv_stem", ep["stem_conv"])
+    _bn(sd, f"{prefix}_bn0", ep["stem_bn"], es["stem_bn"])
+    for tn, (name, expands) in enumerate(_encoder_blocks(encoder_name)):
+        t = f"{prefix}_blocks.{tn}"
+        bp, bs = ep[name], es[name]
+        if expands:
+            _conv(sd, f"{t}._expand_conv", bp["expand_conv"])
+            _bn(sd, f"{t}._bn0", bp["expand_bn"], bs["expand_bn"])
+        _conv(sd, f"{t}._depthwise_conv", bp["dw_conv"])
+        _bn(sd, f"{t}._bn1", bp["dw_bn"], bs["dw_bn"])
+        _conv(sd, f"{t}._se_reduce", bp["se_reduce"])
+        _conv(sd, f"{t}._se_expand", bp["se_expand"])
+        _conv(sd, f"{t}._project_conv", bp["project_conv"])
+        _bn(sd, f"{t}._bn2", bp["project_bn"], bs["project_bn"])
+
+
+def _trunk_state_dict(p: Mapping, s: Mapping, encoder_name: str) -> StateDict:
+    """The encoder and the two U-Net decoders both height models share:
+    ``encoder.*``, ``decoder{1,2}.blocks.{i}.conv{1,2}.{0,1}``."""
+    sd: StateDict = {}
+    _encoder_state_dict(sd, "encoder.", p["encoder"], s["encoder"], encoder_name)
     for dname in ("decoder1", "decoder2"):
         nblocks = len([k for k in p[dname] if k.startswith("block")])
         for bi in range(nblocks):
@@ -215,6 +249,17 @@ def height_model_state_dict(variables: Mapping,
                 prefix = f"{dname}.blocks.{bi}.conv{ci}"
                 _conv(sd, f"{prefix}.0", bp["conv"])
                 _bn(sd, f"{prefix}.1", bp["bn"], bs["bn"])
+    return sd
+
+
+def height_model_state_dict(variables: Mapping,
+                            encoder_name: str = "efficientnet-b4",
+                            isaggre: bool = True) -> StateDict:
+    """SRRegressClsFeature: ``encoder.*`` (efficientnet-pytorch names),
+    ``decoder{1,2}.blocks.{i}.conv{1,2}.{0,1}``, ``hrfeat.{i}.*``,
+    ``{reg,seg}.upsampler.{2k}/fuse.{i}/conv_last`` and ``aggre_height``."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd = _trunk_state_dict(p, s, encoder_name)
     for i in range(3):
         _basic_block(sd, f"hrfeat.{i}", p["hrfeat"][f"block{i}"],
                      s["hrfeat"][f"block{i}"])
@@ -230,6 +275,78 @@ def height_model_state_dict(variables: Mapping,
     return sd
 
 
+def nosuper_state_dict(variables: Mapping, encoder_name: str = "efficientnet-b4",
+                       isaggre: bool = True) -> StateDict:
+    """SRRegressClsNosuper: the trunk of :func:`height_model_state_dict`,
+    ``{reg,seg}.upsampler.{2k}`` / ``{reg,seg}.conv_last`` and
+    ``aggre_height``."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd = _trunk_state_dict(p, s, encoder_name)
+    for head in ("reg", "seg"):
+        hp = p[head]
+        for k in range(len(hp["upsampler"])):
+            _conv(sd, f"{head}.upsampler.{2 * k}", hp["upsampler"][f"conv_{k}"])
+        _conv(sd, f"{head}.conv_last", hp["conv_last"])
+    if isaggre:
+        _conv(sd, "aggre_height", p["aggre_height"])
+    return sd
+
+
+MODEL_STATE_DICTS = {"feature": height_model_state_dict,
+                     "nosuper": nosuper_state_dict}
+
+
+def encoder_state_dict_from_npz(path: str, encoder_name: str) -> StateDict:
+    """The JAX package's ImageNet-encoder ``.npz`` (``params`` /
+    ``batch_stats`` of an ``EfficientNetEncoder``, written by ``python -m
+    srbh_tpu.train.convert effnet.pth enc.npz --arch imagenet-encoder``) as
+    an efficientnet-pytorch state dict for :func:`graft_encoder`. Raises
+    ``ValueError`` naming ``path`` if the file holds another encoder."""
+    tree = load_tree_npz(path)
+    want = {"stem_conv", "stem_bn"} | {n for n, _ in _encoder_blocks(encoder_name)}
+    if not {"params", "batch_stats"} <= set(tree) or set(tree["params"]) != want:
+        raise ValueError(f"{path} is not an encoder npz of {encoder_name} "
+                         "(params / batch_stats of stem_conv, stem_bn and "
+                         f"{len(want) - 2} blocks)")
+    sd: StateDict = {}
+    _encoder_state_dict(sd, "", tree["params"], tree["batch_stats"], encoder_name)
+    return sd
+
+
+def widen_stem(weight: torch.Tensor, in_channels: int) -> torch.Tensor:
+    """smp's ``patch_first_conv`` for more input channels than the
+    checkpoint's: cycle the kernel's input channels (axis 1 of OIHW) and
+    scale by old / new, so activations keep their pretrained size."""
+    old = weight.shape[1]
+    return weight[:, [i % old for i in range(in_channels)]] * (old / in_channels)
+
+
+def graft_encoder(encoder: nn.Module, sd: Mapping, source: str) -> None:
+    """Load ImageNet weights with efficientnet-pytorch's names (``sd``, from
+    ``source``) into ``encoder``, the reference's ``encoder_weights=
+    "imagenet"`` start (mymodels.py:234,242-243): the classifier head
+    (``_conv_head``, ``_bn1``, ``_fc``) is dropped, a stem with other input
+    channels is widened (:func:`widen_stem`), and a missing
+    ``num_batches_tracked`` keeps the encoder's. Raises ``ValueError``
+    naming ``source`` if a key is missing or left over, or a shape differs."""
+    want = encoder.state_dict()
+    got = {k: torch.as_tensor(np.asarray(v)) for k, v in sd.items()
+           if not k.startswith(_IMAGENET_HEAD)}
+    stem = got.get("_conv_stem.weight")
+    if stem is not None and stem.shape[1] != want["_conv_stem.weight"].shape[1]:
+        got["_conv_stem.weight"] = widen_stem(stem, want["_conv_stem.weight"].shape[1])
+    for k, v in want.items():
+        if k.endswith("num_batches_tracked"):
+            got.setdefault(k, v)
+    missing, extra = sorted(set(want) - set(got)), sorted(set(got) - set(want))
+    shapes = [k for k in set(want) & set(got) if got[k].shape != want[k].shape]
+    if missing or extra or shapes:
+        raise ValueError(f"encoder weights {source} do not fit the model's "
+                         f"encoder: missing {missing[:3]}, unexpected "
+                         f"{extra[:3]}, other shapes {sorted(shapes)[:3]}")
+    encoder.load_state_dict({k: v.to(want[k].dtype) for k, v in got.items()})
+
+
 def _adam_state(opt_group: Mapping) -> Mapping:
     """The ``scale_by_adam`` entry (``count``, ``mu``, ``nu``) of one optax
     group's state, in flax state-dict form: ``inner_state`` of the
@@ -242,11 +359,12 @@ def _adam_state(opt_group: Mapping) -> Mapping:
 def train_state_from_jax(params: Mapping, batch_stats: Mapping, log_vars,
                          opt_state: Optional[Mapping] = None,
                          encoder_name: str = "efficientnet-b4",
-                         isaggre: bool = True):
+                         isaggre: bool = True, model_variant: str = "feature"):
     """The JAX package's height train state -> the port's.
 
     Returns ``(state_dict, log_vars, moments)``: the height model's state
-    dict (:func:`height_model_state_dict`), the log-vars as a float32
+    dict (:func:`height_model_state_dict`, or :func:`nosuper_state_dict`
+    for ``model_variant="nosuper"``), the log-vars as a float32
     tensor, and, when ``opt_state`` is given (the optax state of
     ``srbh_tpu.train.state.TrainState`` in flax state-dict form, as the JAX
     checkpoints store it), Adam's ``mu`` / ``nu`` / ``count`` as the torch
@@ -254,8 +372,9 @@ def train_state_from_jax(params: Mapping, batch_stats: Mapping, log_vars,
     ``TrainState.load_moments`` (else ``None``). The moments of each
     parameter take its layout, so they pass through the same name mapping.
     """
+    to_sd = MODEL_STATE_DICTS[model_variant]
     variables = {"params": params, "batch_stats": batch_stats}
-    sd = height_model_state_dict(variables, encoder_name, isaggre)
+    sd = to_sd(variables, encoder_name, isaggre)
     lv = _t(log_vars)
     if opt_state is None:
         return sd, lv, None
@@ -265,7 +384,7 @@ def train_state_from_jax(params: Mapping, batch_stats: Mapping, log_vars,
              ("weight", "bias")]
 
     def tree(moment):
-        out = height_model_state_dict(
+        out = to_sd(
             {"params": moment["model"], "batch_stats": batch_stats},
             encoder_name, isaggre)
         return {k: out[k] for k in names}

@@ -1,10 +1,13 @@
-"""Host float64 image-quality metrics: PSNR, SSIM, cPSNR.
+"""Host float64 image-quality metrics: PSNR, SSIM, cPSNR, PSNR-B.
 
 A copy of the host part of ``srbh_tpu/metrics/image.py`` (SR/psnr_ssim.py),
 which the port may not import: ``calculate_psnr`` / ``calculate_ssim``
 (:163-318; numpy float64, MATLAB's Gaussian-window SSIM, the BT.601
-Y-channel option) and ``calculate_cpsnr`` (:390-442, PROBA-V's shift and
-bias search over 8 pixels). Images are [0, 255] arrays, HWC or CHW. The
+Y-channel option), ``calculate_cpsnr`` (:390-442, PROBA-V's shift and
+bias search over 8 pixels) and ``calculate_psnrb``
+(SR/util_calculate_psnr_ssim.py:127-218, PSNR with the blocking-effect
+factor, the SwinIR harness's JPEG metric). Images are [0, 255] arrays, HWC
+or CHW. The
 SSIM window is ``ops/usm.py``'s ``cv2_gaussian_kernel``, the same formula as
 the JAX package's ``gaussian_kernel_1d``.
 """
@@ -124,3 +127,46 @@ def calculate_cpsnr(img, img2, crop_border=0, input_order="HWC",
     if best_mse == 0:
         return float("inf")
     return 10.0 * np.log10(255.0 * 255.0 / best_mse)
+
+
+def _blocking_effect_factor(im: np.ndarray, block_size: int = 8) -> float:
+    """Blocking-effect factor of an (H, W) [0, 1] image
+    (SR/util_calculate_psnr_ssim.py:127-164): the squared differences across
+    8x8 block boundaries against those elsewhere, each over its count of
+    edges; a positive excess scaled by ``log2(8) / log2(min(H, W))``, else
+    0."""
+    h, w = im.shape
+    hb = np.arange(block_size - 1, w - 1, block_size)  # boundary columns
+    vb = np.arange(block_size - 1, h - 1, block_size)  # boundary rows
+    hnb = np.setdiff1d(np.arange(0, w - 1), hb)
+    vnb = np.setdiff1d(np.arange(0, h - 1), vb)
+
+    h_block = float(((im[:, hb] - im[:, hb + 1]) ** 2).sum())
+    v_block = float(((im[vb, :] - im[vb + 1, :]) ** 2).sum())
+    h_nonblock = float(((im[:, hnb] - im[:, hnb + 1]) ** 2).sum())
+    v_nonblock = float(((im[vnb, :] - im[vnb + 1, :]) ** 2).sum())
+
+    n_boundary_horiz = h * (w // block_size - 1)
+    n_boundary_vert = w * (h // block_size - 1)
+    boundary = (h_block + v_block) / (n_boundary_horiz + n_boundary_vert)
+    n_nonboundary_horiz = h * (w - 1) - n_boundary_horiz
+    n_nonboundary_vert = w * (h - 1) - n_boundary_vert
+    nonboundary = (h_nonblock + v_nonblock) / (n_nonboundary_horiz
+                                               + n_nonboundary_vert)
+
+    scaler = np.log2(block_size) / np.log2(min(h, w))
+    return scaler * (boundary - nonboundary) if boundary > nonboundary else 0.0
+
+
+def calculate_psnrb(img, img2, crop_border=0, input_order="HWC",
+                    test_y_channel=False, **kwargs) -> float:
+    """PSNR-B of [0, 255] images, averaged over the channels; the blocking
+    factor is the first image's, as the reference measures it."""
+    img, img2 = _prepare(img, img2, crop_border, input_order, test_y_channel)
+    img, img2 = img / 255.0, img2 / 255.0
+    total = 0.0
+    for c in range(img.shape[2]):
+        mse = np.mean((img[..., c] - img2[..., c]) ** 2)
+        bef = _blocking_effect_factor(img[..., c])
+        total += 10.0 * np.log10(1.0 / (mse + bef))
+    return float(total / img.shape[2])

@@ -1,10 +1,15 @@
-"""The height model (NCHW), literal form.
+"""The height models (NCHW), literal form.
 
-Counterpart of ``srbh_tpu/models/height_model.py:SRRegressClsFeature``
-(mymodels.py:233-337): an EfficientNet encoder over the 8-channel S2+S1
-tile, two U-Net decoders (height / build), an :class:`HRFeature` adapter on
-the frozen Real-ESRGAN features, two :class:`HRFuseResidual` heads and an
-optional 64x64 ``aggre_height`` 3x3 conv on the height-decoder features.
+Counterparts of ``srbh_tpu/models/height_model.py``:
+
+* :class:`SRRegressClsFeature` (mymodels.py:233-337): an EfficientNet
+  encoder over the 8-channel S2+S1 tile, two U-Net decoders (height /
+  build), an :class:`HRFeature` adapter on the frozen Real-ESRGAN features,
+  two :class:`HRFuseResidual` heads and an optional 64x64 ``aggre_height``
+  3x3 conv on the height-decoder features;
+* :class:`SRRegressClsNosuper` (mymodels.py:341-409): the no-SR ablation,
+  the same encoder and decoders with two :class:`HRUpsample` heads and no
+  SR input.
 
 Outputs are NCHW: height (N, 1, 256, 256), build logits (N, C, 256, 256),
 aggregated height (N, 1, 64, 64).
@@ -19,7 +24,7 @@ from srbh_tpu_torch.models.efficientnet import (
     DROP_CONNECT_RATE,
     EfficientNetEncoder,
 )
-from srbh_tpu_torch.models.hrfuse import HRFeature, HRFuseResidual
+from srbh_tpu_torch.models.hrfuse import HRFeature, HRFuseResidual, HRUpsample
 from srbh_tpu_torch.models.layers import tconv
 from srbh_tpu_torch.models.unet_decoder import UnetDecoder
 
@@ -27,6 +32,18 @@ from srbh_tpu_torch.models.unet_decoder import UnetDecoder
 IN_CHANNELS = 8  # 6 Sentinel-2 bands + 2 Sentinel-1 bands
 DECODER_CHANNELS = (256, 128, 64, 32, 16)
 UPSCALE = 4
+
+
+def _trunk(model: nn.Module, encoder_name: str, decoder_channels,
+           drop_connect_rate: float) -> int:
+    """The encoder and the two decoders both models share; returns the
+    decoders' output width."""
+    model.encoder = EfficientNetEncoder(encoder_name, IN_CHANNELS,
+                                        drop_connect_rate)
+    enc_ch = EfficientNetEncoder.out_channels(encoder_name, IN_CHANNELS)
+    model.decoder1 = UnetDecoder(enc_ch, decoder_channels)
+    model.decoder2 = UnetDecoder(enc_ch, decoder_channels)
+    return decoder_channels[-1]
 
 
 class SRRegressClsFeature(nn.Module):
@@ -41,13 +58,8 @@ class SRRegressClsFeature(nn.Module):
                  drop_connect_rate: float = DROP_CONNECT_RATE):
         super().__init__()
         self.isaggre = isaggre
-        self.encoder = EfficientNetEncoder(encoder_name, IN_CHANNELS,
-                                           drop_connect_rate)
-        enc_ch = EfficientNetEncoder.out_channels(encoder_name, IN_CHANNELS)
-        self.decoder1 = UnetDecoder(enc_ch, decoder_channels)
-        self.decoder2 = UnetDecoder(enc_ch, decoder_channels)
+        mid = _trunk(self, encoder_name, decoder_channels, drop_connect_rate)
         self.hrfeat = HRFeature(sr_chans, super_mid, super_mid)
-        mid = decoder_channels[-1]
         self.reg = HRFuseResidual(mid, super_mid, mid, 1, UPSCALE)
         self.seg = HRFuseResidual(mid, super_mid, mid, chans_build, UPSCALE)
         if isaggre:
@@ -71,3 +83,29 @@ class SRRegressClsFeature(nn.Module):
         if with_aggre:
             outputs.append(self.aggre_height(height_fea))
         return tuple(outputs) if len(outputs) > 1 else outputs[0]
+
+
+class SRRegressClsNosuper(nn.Module):
+    """The no-SR ablation: height + build (+ the 64x64 aggregated height
+    with ``isaggre``) from the S2+S1 tile alone. ``generator`` draws the
+    encoder's drop-connect masks in training mode."""
+
+    def __init__(self, encoder_name: str = "efficientnet-b4",
+                 isaggre: bool = False, chans_build: int = 2,
+                 decoder_channels: Sequence[int] = DECODER_CHANNELS,
+                 drop_connect_rate: float = DROP_CONNECT_RATE):
+        super().__init__()
+        self.isaggre = isaggre
+        mid = _trunk(self, encoder_name, decoder_channels, drop_connect_rate)
+        self.reg = HRUpsample(mid, 1, UPSCALE)
+        self.seg = HRUpsample(mid, chans_build, UPSCALE)
+        if isaggre:
+            self.aggre_height = tconv(mid, 1, 3)
+
+    def forward(self, x, generator=None):
+        feats = self.encoder(x, generator)
+        height_fea = self.decoder1(*feats)
+        outputs = (self.reg(height_fea), self.seg(self.decoder2(*feats)))
+        if self.isaggre:
+            return outputs + (self.aggre_height(height_fea),)
+        return outputs

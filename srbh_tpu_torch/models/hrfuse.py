@@ -7,6 +7,9 @@ Counterparts of ``srbh_tpu/models/hrfuse.py``:
 * :class:`HRFuseResidual` (SR/HRfuse.py:173-190): pixel-shuffle x4 the LR
   decoder features, concatenate the HR features, 3 basic blocks and a 3x3
   head; names ``upsampler.{2k}``, ``fuse.{i}``, ``conv_last``.
+* :class:`HRUpsample` (SR/HRfuse.py:193-202): the no-SR ablation's head,
+  pixel-shuffle x4 then a 3x3 conv; names ``upsampler.{2k}``,
+  ``conv_last``.
 """
 from __future__ import annotations
 
@@ -41,3 +44,13 @@ class HRFuseResidual(nn.Module):
     def forward(self, x_lr, x_hr):
         x = torch.cat([self.upsampler(x_lr), x_hr], dim=1)
         return self.conv_last(self.fuse(x))
+
+
+class HRUpsample(nn.Module):
+    def __init__(self, in_chans: int, out_chans: int = 3, upscale: int = 4):
+        super().__init__()
+        self.upsampler = PixelShuffleUpsampler(upscale, in_chans)
+        self.conv_last = tconv(in_chans, out_chans, 3)
+
+    def forward(self, x):
+        return self.conv_last(self.upsampler(x))

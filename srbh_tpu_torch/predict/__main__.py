@@ -30,6 +30,10 @@ def main(argv=None, device=None):
     dev = resolve_device(device)
     args = get_args(city="globe", argv=argv)
     args.checkpoint = "checkpoint20"
+    if args.model_variant != "feature":
+        raise ValueError(f"--model_variant {args.model_variant}: the city "
+                         "predictor maps with the SR-feature model "
+                         "(SRRegressClsFeature) only, as the JAX predictor does")
     if os.environ.get("SRBH_PACKED", "") == "1":
         raise NotImplementedError("SRBH_PACKED=1 (the space-to-depth compute "
                                   "mode) is not ported: ROADMAP.md Queue 1 "

@@ -1,18 +1,38 @@
-"""SwinIR test harness: task presets, window padding and tiled inference.
+"""SwinIR test harness: task presets, image pairs, tiled inference and the
+metric report.
 
-Counterpart of ``srbh_tpu/tools/swinir_harness.py`` (SR/main_test_swinir.py)
-for ``define_model``, ``setup``, ``pad_to_window_multiple`` and
-``tiled_inference``, plus :func:`apply`, the NHWC forward those take. The
-harness's image file I/O, its metrics and its ``main`` are not ported yet.
+Counterpart of ``srbh_tpu/tools/swinir_harness.py`` (SR/main_test_swinir.py):
+``define_model`` (seeded random weights), ``setup``, :func:`get_image_pair`
+for the seven tasks, ``pad_to_window_multiple``, ``tiled_inference``,
+:func:`run_folder` (PSNR / SSIM / PSNR-B, Y-channel variants, ``*_SwinIR.png``
+outputs) and :func:`main`, runnable as ``python -m
+srbh_tpu_torch.tools.swinir_harness``; plus :func:`apply`, the NHWC forward.
+
+Images are PNG files read and written by ``data/png.py`` with cv2's
+conventions (BGR order: the model sees RGB, the metrics and files BGR). The
+two JPEG tasks need cv2's JPEG codec and import cv2 in their branch only:
+without cv2 they raise ``ImportError``. On a card every window attention of
+the model runs the Hopper kernel.
 """
 from __future__ import annotations
 
+import argparse
+import glob
+import os
+from collections import OrderedDict
 from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
-from srbh_tpu_torch import resolve_device
+from srbh_tpu_torch import convert, resolve_device
+from srbh_tpu_torch.data import png
+from srbh_tpu_torch.metrics.image import (
+    bgr2ycbcr,
+    calculate_psnr,
+    calculate_psnrb,
+    calculate_ssim,
+)
 from srbh_tpu_torch.models.layers import init_weights
 from srbh_tpu_torch.models.swinir import SwinIR
 
@@ -78,6 +98,51 @@ def setup(task: str, scale: int = 1) -> Tuple[int, int]:
     raise ValueError(task)
 
 
+def get_image_pair(task: str, path: str, folder_lq: Optional[str] = None,
+                   scale: int = 1, noise: int = 15, jpeg: int = 40):
+    """(name, lq HWC float in [0, 1], gt or None), BGR as cv2 reads them
+    (SR/main_test_swinir.py:229-275). The denoising tasks draw their noise
+    with ``np.random.seed(0)`` in float64, as the reference does."""
+    name, ext = os.path.splitext(os.path.basename(path))
+    if task in ("classical_sr", "lightweight_sr"):
+        gt = png.imread(path, png.IMREAD_COLOR).astype(np.float32) / 255.0
+        lq = png.imread(f"{folder_lq}/{name}x{scale}{ext}",
+                        png.IMREAD_COLOR).astype(np.float32) / 255.0
+    elif task == "real_sr":
+        gt = None
+        lq = png.imread(path, png.IMREAD_COLOR).astype(np.float32) / 255.0
+    elif task == "gray_dn":
+        gt = png.imread(path, png.IMREAD_GRAYSCALE).astype(np.float32) / 255.0
+        np.random.seed(0)
+        lq = gt + np.random.normal(0, noise / 255.0, gt.shape)
+        gt, lq = gt[..., None], lq[..., None]
+    elif task == "color_dn":
+        gt = png.imread(path, png.IMREAD_COLOR).astype(np.float32) / 255.0
+        np.random.seed(0)
+        lq = gt + np.random.normal(0, noise / 255.0, gt.shape)
+    elif task == "jpeg_car":
+        import cv2  # the JPEG codec
+
+        gt = png.imread(path, png.IMREAD_UNCHANGED)
+        if gt.ndim != 2:
+            gt = bgr2ycbcr(gt, y_only=True)
+        _, enc = cv2.imencode(".jpg", gt, [int(cv2.IMWRITE_JPEG_QUALITY), jpeg])
+        lq = cv2.imdecode(enc, 0)
+        gt = gt[..., None].astype(np.float32) / 255.0
+        lq = lq[..., None].astype(np.float32) / 255.0
+    elif task == "color_jpeg_car":
+        import cv2  # the JPEG codec
+
+        gt = png.imread(path, png.IMREAD_COLOR)
+        _, enc = cv2.imencode(".jpg", gt, [int(cv2.IMWRITE_JPEG_QUALITY), jpeg])
+        lq = cv2.imdecode(enc, 1)
+        gt = gt.astype(np.float32) / 255.0
+        lq = lq.astype(np.float32) / 255.0
+    else:
+        raise ValueError(task)
+    return name, lq, gt
+
+
 def pad_to_window_multiple(img: np.ndarray, window_size: int) -> np.ndarray:
     """Flip-concat padding to the NEXT window multiple
     (SR/main_test_swinir.py:100-110 — always pads at least one window)."""
@@ -118,3 +183,118 @@ def tiled_inference(apply_fn: Callable, img_lq: np.ndarray, scale: int,
             W[hi * scale: (hi + tile) * scale,
               wi * scale: (wi + tile) * scale] += 1
     return E / W
+
+
+def run_folder(task: str, folder: str, model: SwinIR, scale: int = 1,
+               folder_lq: Optional[str] = None, noise: int = 15,
+               jpeg: int = 40, tile: Optional[int] = None,
+               tile_overlap: int = 32, save_dir: Optional[str] = None,
+               device=None) -> dict:
+    """Evaluate every image of ``folder`` with ``model`` on ``device``
+    (``None`` is the card; without one this raises unless ``device="cpu"``);
+    returns the averaged metrics (``None`` where no image gave one) and,
+    with ``save_dir``, writes each output as ``<name>_SwinIR.png``."""
+    dev = resolve_device(device)
+    model = model.to(dev).eval()
+    border, window_size = setup(task, scale)
+    results = OrderedDict((k, []) for k in
+                          ("psnr", "ssim", "psnr_y", "ssim_y", "psnrb", "psnrb_y"))
+    if save_dir:
+        os.makedirs(save_dir, exist_ok=True)
+    for path in sorted(glob.glob(os.path.join(folder, "*"))):
+        name, lq, gt = get_image_pair(task, path, folder_lq, scale, noise, jpeg)
+        h_old, w_old = lq.shape[:2]
+        # the models take RGB: flip in and out (main_test_swinir.py:63,80);
+        # metrics and files stay BGR
+        is_color = lq.ndim == 3 and lq.shape[2] == 3
+        if is_color:
+            lq = lq[:, :, ::-1]
+        lq = pad_to_window_multiple(lq, window_size)
+        out = tiled_inference(lambda x: apply(model, x), lq.astype(np.float32),
+                              scale, tile, tile_overlap, window_size)
+        out = out[: h_old * scale, : w_old * scale]
+        if is_color:
+            out = out[..., ::-1]
+        out8 = np.squeeze((np.clip(out, 0, 1) * 255.0).round().astype(np.uint8))
+        if save_dir:
+            png.imwrite(os.path.join(save_dir, f"{name}_SwinIR.png"), out8)
+        if gt is None:
+            continue
+        gt8 = (gt * 255.0).round().astype(np.uint8)
+        gt8 = np.squeeze(gt8[: h_old * scale, : w_old * scale])
+        results["psnr"].append(calculate_psnr(out8, gt8, crop_border=border))
+        results["ssim"].append(calculate_ssim(out8, gt8, crop_border=border))
+        if gt8.ndim == 3:
+            results["psnr_y"].append(calculate_psnr(
+                out8, gt8, crop_border=border, test_y_channel=True))
+            results["ssim_y"].append(calculate_ssim(
+                out8, gt8, crop_border=border, test_y_channel=True))
+        if task in ("jpeg_car", "color_jpeg_car"):
+            results["psnrb"].append(calculate_psnrb(out8, gt8, crop_border=border))
+            if gt8.ndim == 3:
+                results["psnrb_y"].append(calculate_psnrb(
+                    out8, gt8, crop_border=border, test_y_channel=True))
+    return {k: (sum(v) / len(v) if v else None) for k, v in results.items()}
+
+
+def load_weights(model: SwinIR, path: str, task: str) -> None:
+    """Load ``path`` into ``model``: the JAX package's ``.npz`` of
+    ``{"params": ...}`` (through ``convert.swinir_state_dict``), or a torch
+    file holding a state dict with the reference's names, alone or under
+    ``params`` (``params_ema`` for ``real_sr``: the reference's
+    ``param_key_g``); the reference's derived ``relative_position_index`` /
+    ``attn_mask`` buffers are dropped."""
+    if path.endswith(".npz"):
+        depths = [len(layer.residual_group.blocks) for layer in model.layers]
+        sd = convert.swinir_state_dict(
+            {"params": convert.load_tree_npz(path)["params"]}, depths,
+            model.upsampler)
+    else:
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+        sd = sd.get("params_ema" if task == "real_sr" else "params", sd)
+        sd = {k: v for k, v in sd.items()
+              if not k.endswith(("relative_position_index", "attn_mask"))}
+    model.load_state_dict(sd)
+
+
+def main(argv=None, device=None) -> dict:
+    """``python -m srbh_tpu_torch.tools.swinir_harness [flags]``, the CLI
+    of SR/main_test_swinir.py:14-45 on ``device`` (``None`` is the card;
+    without one this raises unless ``device="cpu"``). Weights come from
+    ``--model_path`` (no download); without it the preset's seeded random
+    weights run (smoke mode). Outputs go to ``results/swinir_{task}_x{scale}``
+    in the working directory."""
+    dev = resolve_device(device)
+    p = argparse.ArgumentParser()
+    p.add_argument("--task", default="color_dn", choices=TASKS)
+    p.add_argument("--scale", type=int, default=1)
+    p.add_argument("--noise", type=int, default=15)
+    p.add_argument("--jpeg", type=int, default=40)
+    p.add_argument("--large_model", action="store_true")
+    p.add_argument("--model_path", default=None,
+                   help="a torch state dict of SwinIR or the JAX package's npz")
+    p.add_argument("--folder_lq", default=None)
+    p.add_argument("--folder_gt", default=None)
+    p.add_argument("--tile", type=int, default=None)
+    p.add_argument("--tile_overlap", type=int, default=32)
+    args = p.parse_args(argv)
+
+    folder = args.folder_gt if args.task != "real_sr" else args.folder_lq
+    model = define_model(args.task, args.scale, large_model=args.large_model,
+                         device="cpu")
+    if args.model_path:
+        load_weights(model, args.model_path, args.task)
+    else:
+        print("no --model_path: random init (smoke mode)")
+    save_dir = f"results/swinir_{args.task}_x{args.scale}"
+    res = run_folder(args.task, folder, model, args.scale, args.folder_lq,
+                     args.noise, args.jpeg, args.tile, args.tile_overlap,
+                     save_dir, device=dev)
+    for k, v in res.items():
+        if v is not None:
+            print(f"-- Average {k.upper()}: {v:.4f}")
+    return res
+
+
+if __name__ == "__main__":
+    main()

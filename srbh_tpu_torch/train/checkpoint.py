@@ -10,9 +10,9 @@ resume continues exactly). It is written to ``<path>.tmp`` and renamed into
 place, synchronously.
 
 :func:`load_checkpoint` also reads the JAX package's ``.npz`` checkpoints
-(``srbh_tpu.train.convert.save_tree_npz``: a flat npz whose keys join the
-tree's path with ``\\x1f``, or ``/`` in older files) through
-``convert.train_state_from_jax``.
+(``srbh_tpu.train.convert.save_tree_npz``, read by
+``convert.load_tree_npz``) through ``convert.train_state_from_jax``, of the
+height model or of the nosuper ablation.
 
 The Real-ESRGAN trainer's checkpoints (``srbh_tpu/train/sr_driver.py:32-44``)
 are two ``torch.save`` files in its log directory with BasicSR's keys:
@@ -30,8 +30,6 @@ import numpy as np
 import torch
 
 from srbh_tpu_torch import convert
-
-_NPZ_SEP, _NPZ_MARKER = "\x1f", "__srbh-npz-sep-1f__"
 
 
 def save_checkpoint(logdir: str, state, epoch: int, best_rmse: float,
@@ -72,27 +70,13 @@ def save_sr_checkpoint(logdir: str, state, epoch: int) -> str:
     return os.path.join(logdir, "net_g")
 
 
-def load_tree_npz(path: str) -> dict:
-    """A JAX ``.npz`` checkpoint as the nested dict it was saved from."""
-    tree: dict = {}
-    with np.load(path) as z:
-        keys = [k for k in z.files if k != _NPZ_MARKER]
-        new_format = _NPZ_MARKER in z.files or any(_NPZ_SEP in k for k in keys)
-        for k in keys:
-            node = tree
-            *parents, leaf = k.split(_NPZ_SEP if new_format else "/")
-            for p in parents:
-                node = node.setdefault(p, {})
-            node[leaf] = z[k]
-    return tree
-
-
-def _payload_from_npz(path: str, encoder_name: str, isaggre: bool) -> dict:
+def _payload_from_npz(path: str, encoder_name: str, isaggre: bool,
+                      model_variant: str) -> dict:
     """A JAX npz (``params``, ``batch_stats``, ``log_vars`` as an array or
     as the converter's ``{"w1": ...}`` scalars, ``meta``) as a payload of
     :func:`save_checkpoint`'s form without ``optimizer``: the npz files of
     the JAX package hold no optimizer state."""
-    tree = load_tree_npz(path)
+    tree = convert.load_tree_npz(path)
     lv = tree.get("log_vars")
     if isinstance(lv, dict):
         lv = np.stack([np.asarray(lv[k], np.float32)
@@ -100,7 +84,7 @@ def _payload_from_npz(path: str, encoder_name: str, isaggre: bool) -> dict:
     sd, log_vars, _ = convert.train_state_from_jax(
         tree["params"], tree["batch_stats"],
         np.zeros(3 if isaggre else 2, np.float32) if lv is None else lv,
-        None, encoder_name, isaggre)
+        None, encoder_name, isaggre, model_variant)
     meta = tree.get("meta", {})
     return {"epoch": int(tree.get("epoch", meta.get("epoch", 0))),
             "best_rmse": float(tree.get("best_rmse",
@@ -110,14 +94,16 @@ def _payload_from_npz(path: str, encoder_name: str, isaggre: bool) -> dict:
 
 
 def load_checkpoint(path: str, encoder_name: str = "efficientnet-b4",
-                    isaggre: bool = True) -> Optional[dict]:
+                    isaggre: bool = True,
+                    model_variant: str = "feature") -> Optional[dict]:
     """A checkpoint's payload, or ``None`` if ``path`` does not exist. A
     path ending in ``.npz`` is read as a JAX checkpoint of a model built
-    with ``encoder_name`` and ``isaggre``."""
+    with ``encoder_name``, ``isaggre`` and ``model_variant`` (``feature``
+    or ``nosuper``)."""
     if not os.path.isfile(path):
         return None
     if path.endswith(".npz"):
-        return _payload_from_npz(path, encoder_name, isaggre)
+        return _payload_from_npz(path, encoder_name, isaggre, model_variant)
     return torch.load(path, map_location="cpu", weights_only=True)
 
 

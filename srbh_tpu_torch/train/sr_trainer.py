@@ -174,18 +174,36 @@ class RealESRGANTrainer:
             return contextlib.nullcontext()
         return torch.autocast(dev.type, dtype=self.dtype)
 
+    @staticmethod
+    def _autotuned(dev):
+        """On a card, ``torch.backends.cudnn.benchmark`` for the length of
+        the block, restored after it: cuDNN times its algorithms for each
+        convolution shape instead of taking its heuristic's choice. The
+        heuristic gives the discriminator's ``conv5`` forward at the recipe's
+        shapes ([12, 256, 128, 128] by [128, 256, 3, 3]) an FFT algorithm
+        that took 70.7 % of the float32 step. PyTorch keeps the plan it
+        chose the first time it meets a shape, so the step's shapes must
+        first run inside the block."""
+        scope = contextlib.ExitStack()
+        if dev.type == "cuda":
+            scope.callback(setattr, torch.backends.cudnn, "benchmark",
+                           torch.backends.cudnn.benchmark)
+            torch.backends.cudnn.benchmark = True
+        return scope
+
     def make_step(self):
         """``step(state, lq, gt) -> metrics``: one update of ``state`` in
         place; the metrics (``l_g_pix``, ``l_g_percep``, ``l_g_gan``,
         ``l_g_total``, ``l_d_real``, ``l_d_fake``, ``out_d_real``,
-        ``out_d_fake``) stay on the device."""
+        ``out_d_fake``) stay on the device. On a card the step runs with
+        cuDNN's autotuning on (:meth:`_autotuned`)."""
         if self.perceptual and self.vgg is None:
             raise RuntimeError("make_step before init(): init() builds the "
                                "perceptual VGG19")
         vgg, gan_w, decay = self.vgg, self.gan_weight, self.ema_decay
         usm_any = self.l1_gt_usm or self.percep_gt_usm or self.gan_gt_usm
 
-        def step(state: GANTrainState, lq, gt):
+        def update(state: GANTrainState, lq, gt):
             dev = state.device
             net_g, net_d = state.net_g.train(), state.net_d
             lq, gt = _nchw(lq, dev), _nchw(gt, dev)
@@ -244,16 +262,21 @@ class RealESRGANTrainer:
                 ("l_d_fake", l_fake), ("out_d_real", real_pred.mean()),
                 ("out_d_fake", fake_pred.mean()))}
 
+        def step(state: GANTrainState, lq, gt):
+            with self._autotuned(state.device):
+                return update(state, lq, gt)
+
         return step
 
     def ema_apply_fn(self):
         """``apply(state, lq, features_only=False)``: the EMA generator (what
         the height model consumes, train.py:137) on NHWC ``lq``, NHWC out,
-        without gradients."""
+        without gradients; on a card with cuDNN's autotuning on, as the
+        step."""
 
         def apply(state: GANTrainState, lq, features_only: bool = False):
             dev = state.device
-            with torch.no_grad(), self._compute(dev):
+            with torch.no_grad(), self._autotuned(dev), self._compute(dev):
                 out = state.g_ema(_nchw(lq, dev), features_only=features_only)
             return out.float().permute(0, 2, 3, 1)
 

@@ -203,9 +203,11 @@ def make_eval_step(model, sr_model, rgb_idx=(0, 1, 2),
     return step
 
 
-def make_predict_step(model, sr_model, rgb_idx=(0, 1, 2), device=None):
+def make_predict_step(model, sr_model, rgb_idx=(0, 1, 2),
+                      dtype: torch.dtype = torch.float32, device=None):
     """Inference step ``step(image) -> (height (N, H, W), build logits
-    (N, H, W, C))`` in float32, NHWC like the JAX step's outputs."""
+    (N, H, W, C))``, NHWC like the JAX step's outputs; ``dtype`` other than
+    float32 runs the models under ``torch.autocast``."""
     dev = resolve_device(device)
     model.to(dev)
     if sr_model is not None:
@@ -213,7 +215,7 @@ def make_predict_step(model, sr_model, rgb_idx=(0, 1, 2), device=None):
     rgb = list(rgb_idx)
 
     def step(image):
-        outs = _eval_heads(model, sr_model, rgb, dev, torch.float32, image)
+        outs = _eval_heads(model, sr_model, rgb, dev, dtype, image)
         return outs[0][:, 0], outs[1].permute(0, 2, 3, 1)
 
     return step

@@ -1,20 +1,26 @@
-"""The height model's trainer (its training loop).
+"""The height model's trainer and its test-set evaluation.
 
-Counterpart of ``srbh_tpu/train/trainer.py:main`` (train.py:84-223): seeds,
-the train and validation loaders, the frozen SR model, the height model,
-resume, the epoch loop with the step-decay LR, per-epoch validation, and the
-``checkpoint`` / snapshot / ``model_best`` files. One epoch line is printed
-per epoch. ``writer`` takes an object with ``add_scalar(tag, value, epoch)``
-and ``close()`` (a TensorBoard writer); with ``None`` nothing is written.
+Counterparts of ``srbh_tpu/train/trainer.py``:
 
-``--device_aug`` moves augmentation and target building into the train
-step; ``--device_norm`` (which implies ``--device_aug``) normalisation too.
+* :func:`main` (train.py:84-223): seeds, the train and validation loaders,
+  the frozen SR model, the height model (``--model_variant feature``, or
+  ``nosuper``: the ablation without SR input), the ImageNet encoder start
+  on a fresh run (``--encoder_weights``), resume, the epoch loop with the
+  step-decay LR, per-epoch validation, and the ``checkpoint`` / snapshot /
+  ``model_best`` files. One epoch line is printed per epoch. ``writer``
+  takes an object with ``add_scalar(tag, value, epoch)`` and ``close()`` (a
+  TensorBoard writer); with ``None`` nothing is written. ``--device_aug``
+  moves augmentation and target building into the train step;
+  ``--device_norm`` (which implies ``--device_aug``) normalisation too.
+* :func:`main_test` (train.py:347-425, vtest_epoch2 :427-486): the test
+  list at batch 1 through a checkpoint, writing ``acc{epoch}{suffix}_{num}
+  .txt`` (the mean of per-batch RMSEs), ``*_seg.csv`` and ``*_he.csv``, and
+  with ``issave`` each tile's predicted height and classes as GeoTIFFs.
 
-Not ported yet (``ROADMAP.md``): ``main_test`` and its metric writers, the
-data-parallel and FSDP branches, ``remat``, the ImageNet encoder start and
-the nosuper variant; their flags raise (``_REFUSED``). ``save_opt_state`` and ``async_checkpoint`` are
-accepted and change nothing: every checkpoint holds the optimizer state
-(exact resume) and is written synchronously.
+Not ported yet (``ROADMAP.md``): FSDP and ``remat``; their flags raise
+(``_REFUSED``). ``save_opt_state`` and ``async_checkpoint`` are accepted and
+change nothing: every checkpoint holds the optimizer state (exact resume)
+and is written synchronously.
 """
 from __future__ import annotations
 
@@ -24,30 +30,42 @@ from typing import Optional
 import numpy as np
 import torch
 
-from srbh_tpu_torch import resolve_device
-from srbh_tpu_torch.convert import rrdbnet_state_dict
+from srbh_tpu_torch import convert, resolve_device
 from srbh_tpu_torch.data.dataset import S12GlobeDataset
 from srbh_tpu_torch.data.pipeline import DataLoader
-from srbh_tpu_torch.metrics.streaming import AverageMeter
-from srbh_tpu_torch.models.height_model import UPSCALE, SRRegressClsFeature
+from srbh_tpu_torch.metrics.streaming import (
+    AverageMeter,
+    HeightMetric,
+    SegmentationMetric,
+)
+from srbh_tpu_torch.metrics.writers import (
+    acc2file_height,
+    acc2file_rmse,
+    acc2file_seg,
+)
+from srbh_tpu_torch.models.height_model import (
+    UPSCALE,
+    SRRegressClsFeature,
+    SRRegressClsNosuper,
+)
 from srbh_tpu_torch.models.layers import init_weights
 from srbh_tpu_torch.models.rrdbnet import RRDBNet
 from srbh_tpu_torch.train.checkpoint import (
     load_checkpoint,
-    load_tree_npz,
     restore_into_state,
     save_checkpoint,
 )
 from srbh_tpu_torch.train.config import TrainConfig
 from srbh_tpu_torch.train.schedule import step_decay_lr
 from srbh_tpu_torch.train.state import TrainState
-from srbh_tpu_torch.train.steps import make_eval_step, make_train_step
+from srbh_tpu_torch.train.steps import (
+    make_eval_step,
+    make_predict_step,
+    make_train_step,
+)
 
 # flags of TrainConfig the port refuses, and the ROADMAP.md item they wait for
-_REFUSED = {
-    "fsdp": "Queue 1 item 13", "remat": "Queue 1 item 15",
-    "encoder_weights": "Queue 1 item 6 (ImageNet encoder start)",
-}
+_REFUSED = {"fsdp": "Queue 1 item 13", "remat": "Queue 1 item 15"}
 
 
 def _check_supported(cfg: TrainConfig) -> None:
@@ -55,10 +73,6 @@ def _check_supported(cfg: TrainConfig) -> None:
         if getattr(cfg, flag):
             raise NotImplementedError(
                 f"--{flag} is not ported yet: ROADMAP.md {item}")
-    if cfg.model_variant != "feature":
-        raise NotImplementedError(
-            f"model_variant {cfg.model_variant!r} is not ported yet: "
-            "ROADMAP.md Queue 1 item 11")
     if cfg.upscale != UPSCALE:
         raise NotImplementedError(f"upscale {cfg.upscale}: the port's height "
                                   f"model is x{UPSCALE}")
@@ -66,17 +80,36 @@ def _check_supported(cfg: TrainConfig) -> None:
 
 def build_models(cfg: TrainConfig):
     """(height model, frozen SR model) with weights drawn from
-    ``cfg.seed`` (on the CPU, so every device gets the same ones)."""
+    ``cfg.seed`` (on the CPU, so every device gets the same ones); the
+    nosuper ablation (``model_variant="nosuper"``) has no SR model."""
+    gen = torch.Generator().manual_seed(cfg.seed)
+    if cfg.model_variant == "nosuper":
+        model = SRRegressClsNosuper(cfg.encoder_name, isaggre=cfg.isaggre,
+                                    chans_build=cfg.chans_build)
+        return init_weights(model, gen), None
+    if cfg.model_variant != "feature":
+        raise ValueError(f"model_variant {cfg.model_variant!r}: the port "
+                         "builds 'feature' and 'nosuper'")
     sr = RRDBNet(num_block=cfg.sr_num_block, num_feat=cfg.sr_num_feat,
                  num_grow_ch=cfg.sr_num_grow)
     model = SRRegressClsFeature(cfg.encoder_name, super_mid=cfg.super_mid,
                                 isaggre=cfg.isaggre,
                                 chans_build=cfg.chans_build,
                                 sr_chans=cfg.sr_num_feat)
-    gen = torch.Generator().manual_seed(cfg.seed)
     init_weights(sr, gen)
     init_weights(model, gen)
     return model, sr
+
+
+def load_encoder_weights(cfg: TrainConfig, model) -> None:
+    """Graft ``cfg.encoder_weights`` into the model's encoder: the JAX
+    package's encoder ``.npz``, or a torch file holding efficientnet-pytorch's
+    ImageNet state dict (a 3-channel stem is widened to the model's)."""
+    path = cfg.encoder_weights
+    sd = (convert.encoder_state_dict_from_npz(path, cfg.encoder_name)
+          if path.endswith(".npz")
+          else torch.load(path, map_location="cpu", weights_only=True))
+    convert.graft_encoder(model.encoder, sd, path)
 
 
 def load_sr_weights(cfg: TrainConfig, sr) -> bool:
@@ -88,10 +121,10 @@ def load_sr_weights(cfg: TrainConfig, sr) -> bool:
     if not os.path.isfile(path):
         return False
     if path.endswith(".npz"):
-        tree = load_tree_npz(path)
+        tree = convert.load_tree_npz(path)
         tree = tree.get("params_ema", tree)
-        sd = rrdbnet_state_dict(tree if "params" in tree else {"params": tree},
-                                cfg.sr_num_block)
+        sd = convert.rrdbnet_state_dict(
+            tree if "params" in tree else {"params": tree}, cfg.sr_num_block)
     else:
         sd = torch.load(path, map_location="cpu", weights_only=True)
         sd = next((sd[k] for k in ("net_g_ema", "params_ema", "params")
@@ -103,9 +136,10 @@ def load_sr_weights(cfg: TrainConfig, sr) -> bool:
 def make_loader(cfg: TrainConfig, listname: str, aug: bool, isaggre: bool,
                 ishir: bool, num_sample: int = 0, shuffle: bool = True,
                 preweight: Optional[str] = None, device=None,
-                device_aug: bool = False, device_norm: bool = False
-                ) -> DataLoader:
-    """A loader whose batches arrive on ``device`` (``None`` is the card)."""
+                device_aug: bool = False, device_norm: bool = False,
+                batch_size: Optional[int] = None) -> DataLoader:
+    """A loader whose batches arrive on ``device`` (``None`` is the card),
+    of ``batch_size`` samples (``None``: ``cfg.batch_size``)."""
     ds = S12GlobeDataset(
         os.path.join(cfg.datapath, listname), cfg.datapath,
         datastats=cfg.datastats, normmethod="minmax", datarange=(0, 1),
@@ -113,7 +147,8 @@ def make_loader(cfg: TrainConfig, listname: str, aug: bool, isaggre: bool,
         heightdir=cfg.bhdir, preweight=preweight, isaggre=isaggre,
         ishir=ishir, hir=cfg.hir, nchans=cfg.nchanss2, seed=cfg.seed,
         device_aug=device_aug, device_norm=device_norm)
-    return DataLoader(ds, batch_size=cfg.batch_size, shuffle=shuffle,
+    return DataLoader(ds, batch_size=batch_size or cfg.batch_size,
+                      shuffle=shuffle,
                       num_workers=cfg.num_workers, seed=cfg.seed,
                       device_put=True, device=device)
 
@@ -140,17 +175,23 @@ def main(cfg: TrainConfig, writer=None,
                             shuffle=False, device=dev)
 
     model, sr = build_models(cfg)
-    if not load_sr_weights(cfg, sr):
+    if sr is not None and not load_sr_weights(cfg, sr):
         print("=> no SR checkpoint found; using random frozen features")
+    start_epoch, best_rmse = 0, float("inf")
+    payload = load_checkpoint(os.path.join(cfg.logdir, "checkpoint"))
+    # only a fresh run starts its encoder from ImageNet weights: a resumed
+    # run takes the encoder from its checkpoint
+    if payload is None and cfg.encoder_weights:
+        load_encoder_weights(cfg, model)
+        print(f"=> encoder initialised from {cfg.encoder_weights}")
+    elif payload is None:
+        print("WARNING: training starts from a RANDOM encoder — the "
+              "reference always uses ImageNet weights (mymodels.py:242); "
+              "pass --encoder_weights.")
     model.to(dev)
     state = TrainState(model, n_log_vars=3 if cfg.isaggre else 2, lr=cfg.lr,
                        weight_decay=cfg.weight_decay, sr_model=sr)
-    start_epoch, best_rmse = 0, float("inf")
-    payload = load_checkpoint(os.path.join(cfg.logdir, "checkpoint"))
-    if payload is None:
-        print("WARNING: training starts from a RANDOM encoder — the "
-              "reference always uses ImageNet weights (mymodels.py:242).")
-    else:
+    if payload is not None:
         restore_into_state(state, payload)
         start_epoch = payload["epoch"]
         best_rmse = payload.get("best_rmse", float("inf"))
@@ -221,3 +262,90 @@ def main(cfg: TrainConfig, writer=None,
     if writer is not None:
         writer.close()
     return state
+
+
+def _save_tiles(respath: str, height, build, paths) -> None:
+    """Each tile's ``<name>_predprob.tif`` (uint16 decimetres, negatives to
+    0) and ``<name>_build.tif`` (uint8 classes, the colormap), PACKBITS,
+    on its source tile's geotransform at 2.5 m."""
+    from srbh_tpu_torch.predict.writers import array2raster_rio
+
+    hp = height.cpu().numpy().copy()
+    hp[hp < 0] = 0
+    hp = np.round(hp * 10).astype(np.uint16)
+    bp = build.cpu().numpy().astype(np.uint8)
+    for k, imgpath in enumerate(paths):
+        ibase = os.path.join(respath, os.path.basename(imgpath)[:-4])
+        array2raster_rio(ibase + "_predprob.tif", hp[k], imgpath, iscmap=False,
+                         compress="PACKBITS")
+        array2raster_rio(ibase + "_build.tif", bp[k], imgpath, iscmap=True,
+                         compress="PACKBITS")
+
+
+def main_test(cfg: TrainConfig, num_sample: int = 100, suffix: str = "",
+              issave: bool = False, max_batches: Optional[int] = None,
+              batch_size: int = 1, device=None):
+    """Evaluate ``<logdir>/<checkpoint>`` (or the JAX package's
+    ``<checkpoint>.npz``) on the first ``num_sample`` tiles of the test list
+    (0: all), shuffled with the loader's seed, on ``device`` (``None`` is
+    the card; without one this raises unless ``device="cpu"``). Writes
+    ``acc{epoch}{suffix}_{num_sample}.txt``, ``*_seg.csv`` and ``*_he.csv``
+    in the log directory and, with ``issave``, the tiles' GeoTIFFs in
+    ``pred_{epoch}_{suffix}``; returns ``{"rmse", "oa", "txtpath"}``, or
+    ``None`` (with a line printed) when there is no checkpoint.
+
+    The RMSE is the mean of per-batch RMSEs (vtest_epoch2 :444-446): at
+    ``batch_size`` 1, the reference's, the mean of per-tile RMSEs. The
+    metrics stay on the device until the files are written.
+    ``max_batches`` cuts the loop (0 evaluates nothing: RMSE 0.0)."""
+    dev = resolve_device(device)
+    _check_supported(cfg)
+    path = os.path.join(cfg.logdir, cfg.checkpoint)
+    if not os.path.isfile(path) and os.path.isfile(path + ".npz"):
+        path += ".npz"
+    payload = load_checkpoint(path, cfg.encoder_name, cfg.isaggre,
+                              cfg.model_variant)
+    if payload is None:
+        print(f"=> no checkpoint at {path}; stopping")
+        return None
+    loader = make_loader(cfg, cfg.testlist, aug=False, isaggre=False,
+                         ishir=True, num_sample=num_sample,
+                         preweight=cfg.preweight, device=dev,
+                         batch_size=batch_size)
+    model, sr = build_models(cfg)
+    if sr is not None:
+        load_sr_weights(cfg, sr)
+    model.load_state_dict(payload["model"])
+    epoch = payload["epoch"]
+    predict_step = make_predict_step(
+        model, sr, cfg.rgbseq, torch.bfloat16 if cfg.bf16 else torch.float32,
+        device=dev)
+    acc_seg = SegmentationMetric(cfg.chans_build)
+    acc_he = HeightMetric(cfg.chans_build)
+    respath = os.path.join(cfg.logdir, f"pred_{epoch}_{suffix}")
+    if issave:
+        os.makedirs(respath, exist_ok=True)
+
+    rmses, sizes = [], []
+    for bi, batch in enumerate(loader):
+        if max_batches is not None and bi >= max_batches:
+            break
+        height, logits = predict_step(batch["image"])
+        height, target = height.float(), batch["height"].float()
+        rmses.append(torch.sqrt(torch.mean((height - target) ** 2)))
+        sizes.append(len(height))
+        build = logits.argmax(-1)
+        acc_seg.add_batch(build, batch["build"])
+        acc_he.add_batch(height, target, batch["build"])
+        if issave:
+            _save_tiles(respath, height, build, batch["path"])
+
+    acc_total = AverageMeter()
+    for rmse, n in zip(torch.stack(rmses).tolist() if rmses else [], sizes):
+        acc_total.update(rmse, n)
+    txtpath = os.path.join(cfg.logdir, f"acc{epoch}{suffix}_{num_sample}.txt")
+    acc2file_rmse(acc_total, txtpath)
+    acc2file_seg(acc_seg, txtpath[:-4] + "_seg.txt")
+    acc2file_height(acc_he, txtpath[:-4] + "_he.txt")
+    return {"rmse": acc_total.avg, "oa": acc_seg.overall_accuracy(),
+            "txtpath": txtpath}

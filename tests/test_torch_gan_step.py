@@ -22,7 +22,8 @@ seeded state comes across through ``convert.gan_state_from_jax``.
 * Each USM ground-truth switch, ``warmup_iter=2`` (the first update is
   zero), the one-channel adaptation, ``ema_apply_fn`` with
   ``features_only``, Adam's moments carried from a JAX state, a bfloat16
-  step (finite, float32 state) and the ``remat`` refusal.
+  step (finite, float32 state), the ``remat`` refusal and the scope of
+  the step's cuDNN autotuning.
 """
 import numpy as np
 import pytest
@@ -309,3 +310,19 @@ def test_bfloat16_step_keeps_a_float32_state():
 def test_remat_is_refused():
     with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
         RealESRGANTrainer(remat=True)
+
+
+def test_cudnn_autotuning_holds_only_inside_a_card_step():
+    """The step's autotuning scope: on a card it turns cuDNN's benchmark on
+    and restores the flag after the block, an exception included; on the
+    CPU it leaves the flag alone."""
+    before = torch.backends.cudnn.benchmark
+    with RealESRGANTrainer._autotuned(torch.device("cuda")):
+        assert torch.backends.cudnn.benchmark
+    assert torch.backends.cudnn.benchmark == before
+    with pytest.raises(RuntimeError, match="inside"):
+        with RealESRGANTrainer._autotuned(torch.device("cuda")):
+            raise RuntimeError("inside")
+    assert torch.backends.cudnn.benchmark == before
+    with RealESRGANTrainer._autotuned(torch.device("cpu")):
+        assert torch.backends.cudnn.benchmark == before

@@ -57,7 +57,7 @@ def test_port_has_the_slice_modules():
                  "predict.__main__", "ops.aggregate", "ops.device_aug",
                  "ops.usm", "losses.sr", "models.vgg", "models.discriminators",
                  "train.sr_trainer", "train.sr_driver", "train.sr_config",
-                 "metrics.image"):
+                 "metrics.image", "metrics.writers", "data.png"):
         assert f"srbh_tpu_torch.{name}" in mods
 
 
@@ -96,6 +96,7 @@ def _entry_points():
         predict_city,
     )
     from srbh_tpu_torch.tools import swinir_harness
+    from srbh_tpu_torch.train import __main__ as train_cli
     from srbh_tpu_torch.train import trainer
     from srbh_tpu_torch.train.config import TrainConfig
     from srbh_tpu_torch.train.sr_driver import eval_sr, train_sr
@@ -120,6 +121,11 @@ def _entry_points():
         "RealESRGANTrainer.init": lambda: RealESRGANTrainer(num_block=1).init(),
         "train_sr": lambda: train_sr(RealESRGANTrainer(), [], ""),
         "eval_sr": lambda: eval_sr(RealESRGANTrainer(), None, []),
+        "trainer.main_test": lambda: trainer.main_test(TrainConfig()),
+        "train.__main__.main": lambda: train_cli.main([]),
+        "swinir_harness.run_folder": lambda: swinir_harness.run_folder(
+            "color_dn", "", None),
+        "swinir_harness.main": lambda: swinir_harness.main([]),
     }
 
 
@@ -131,7 +137,10 @@ def _entry_points():
                                   "predict.__main__.main",
                                   "make_train_step(device_aug=True)",
                                   "RealESRGANTrainer.init", "train_sr",
-                                  "eval_sr"])
+                                  "eval_sr", "trainer.main_test",
+                                  "train.__main__.main",
+                                  "swinir_harness.run_folder",
+                                  "swinir_harness.main"])
 def test_entry_points_need_a_card_by_default(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

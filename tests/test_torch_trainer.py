@@ -158,9 +158,7 @@ def test_get_args_takes_the_flags_of_train_py():
     assert get_args("beijing", []).trainlist == "datalist_beijing_train_0.7.csv"
 
 
-@pytest.mark.parametrize("flag,value", [("fsdp", True), ("remat", True),
-                                        ("encoder_weights", "enc.npz"),
-                                        ("model_variant", "nosuper")])
+@pytest.mark.parametrize("flag,value", [("fsdp", True), ("remat", True)])
 def test_main_refuses_what_is_not_ported(data, flag, value):
     cfg = make_cfg(data, "refused", 1)
     setattr(cfg, flag, value)
