@@ -100,7 +100,22 @@ two training paths and its two test entry points:
    ``acc1.txt``; the hand kernel's launches over both (none); ms per step
    of ``train_sr`` in steady state (host stamps as its steps return), eval
    images/s, and the GAN step alone on batches on the card in bfloat16 and
-   float32 (tiles/s, peak memory, a ``profile`` of one step by kernel).
+   float32 (tiles/s, peak memory, a ``profile`` of one step by kernel);
+10. the long tail, run after phase 8 and before the GAN: the remaining
+   models (HRFuse, HRFuseX2, GeoNet, RefineResidual, the Geo and Refine
+   height variants, EDSR, ESPCN, RRDBNetSimple, the three SRRegress
+   ablations), the segmentation and SSIM losses, the ``_pt`` metrics and
+   the LPIPS / CLIP / CLIPA / SigLIP towers at small widths on the card
+   against the CPU (outputs within 1e-4 of their largest, loss values 1e-5
+   relative, input gradients 1e-4 of their largest; the SSIM losses in
+   float64); Part A's models at full width on 64x64 tiles in float32
+   (the Geo and Refine variants on RRDBNet-23 features at batch 32, the
+   SRRegress ablations at batch 8, EDSR, ESPCN and RRDBNetSimple-23 at
+   batch 32: tiles/s and peak memory); LPIPS-alex on 12 images of 256x256,
+   CLIP ViT-B/16 and SigLIP SO400M card against CPU on one image pair and
+   timed on 12, and CLIPA bigG-336 built on the card (images/s); and the
+   ``_pt`` metrics against the host float64 metrics on 12 images of
+   256x256 (the largest difference and both times).
 
 TF32 is off for the whole run (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32`` are False), so float32 means
@@ -118,6 +133,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -1676,6 +1692,405 @@ def phase_entry(wa, smi):
     return timed
 
 
+# phase 10: the long tail. Card vs CPU at small widths: model outputs within
+# LT_MODEL_TOL of their largest magnitude, loss values within LT_LOSS_TOL
+# relative, input gradients within LT_GRAD_TOL of their largest, the _pt
+# metrics within LT_MODEL_TOL relative (the tolerances of the CPU tests
+# against the JAX package). SSIM-family losses in float64 on both devices:
+# in float32 their values carry ~1e-5 of rounding (tests/test_torch_ssim.py).
+LT_MODEL_TOL, LT_LOSS_TOL, LT_GRAD_TOL = 1e-4, 1e-5, 1e-4
+LT_TILES, LT_TILES_SR = 32, 8  # full-width batches of 64x64 tiles
+LT_WINDOW_S, LT_MIN_CALLS = 1.0, 3  # each rate: >= 1 s of back-to-back calls
+LT_IMAGES, LT_SIDE = 12, 256  # LPIPS and the _pt metrics: 12 images of 256^2
+
+
+def _lt_random(model, seed):
+    """Seeded weights with random BatchNorm statistics and affines and
+    biases, drawn on the CPU; eval mode."""
+    from srbh_tpu_torch.models.layers import init_weights
+
+    init_weights(model, torch.Generator().manual_seed(seed))
+    gen = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for name, t in model.state_dict().items():
+            if not t.is_floating_point():
+                continue
+            if name.endswith("running_var") or (name.endswith("weight") and t.ndim == 1):
+                t.copy_(torch.rand(t.shape, generator=gen) + 0.5)
+            elif name.endswith(("running_mean", "bias")):
+                t.copy_(torch.randn(t.shape, generator=gen) * 0.1)
+    return model.eval()
+
+
+def _lt_outputs(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _lt_model_card_vs_cpu(name, model, *inputs):
+    """One forward on each device; returns the largest relative error."""
+    card = copy.deepcopy(model).cuda()
+    with torch.no_grad():
+        want = _lt_outputs(model(*inputs))
+        got = _lt_outputs(card(*(x.cuda() for x in inputs)))
+    err = max((a.cpu() - b).abs().max().item() / b.abs().max().item()
+              for a, b in zip(got, want))
+    if not err <= LT_MODEL_TOL:
+        raise AssertionError(f"[long_tail] {name} card vs CPU: {err:.3e}")
+    return err
+
+
+def _lt_loss_card_vs_cpu(name, fn, x, *aux):
+    """Value and input gradient of ``fn(x, *aux)`` on each device."""
+    res = []
+    for dev in ("cpu", "cuda"):
+        xd = x.detach().to(dev).requires_grad_(True)
+        val = fn(xd, *(a.to(dev) for a in aux))
+        val.backward()
+        res.append((val.item(), xd.grad.cpu()))
+    (want, g_want), (got, g_got) = res
+    v_err = abs(got - want) / max(abs(want), 1e-30)
+    g_err = (g_got - g_want).abs().max().item() / g_want.abs().max().item()
+    if not (v_err <= LT_LOSS_TOL and g_err <= LT_GRAD_TOL):
+        raise AssertionError(f"[long_tail] {name} card vs CPU: value {v_err:.3e}, "
+                             f"gradient {g_err:.3e}")
+    return v_err, g_err
+
+
+def long_tail_models_card_vs_cpu():
+    """Part A's models at small widths, the card against the CPU."""
+    from srbh_tpu_torch.models import edsr, height_model, hrfuse, rrdbnet, sr_regress
+    from srbh_tpu_torch.models.espcn import ESPCN
+
+    enc, dec = "efficientnet-test", (32, 24, 16, 12, 8)
+    gen = torch.Generator().manual_seed(10)
+    r = lambda *s: torch.rand(s, generator=gen)  # noqa: E731
+    trunk = dict(encoder_name=enc, decoder_channels=dec)
+    cases = {
+        "HRFuse": (hrfuse.HRFuse(24, 16, 3), r(2, 16, 8, 8), r(2, 8, 8, 8)),
+        "HRFuseX2": (hrfuse.HRFuseX2(8, 16, 3), r(2, 16, 8, 8), r(2, 8, 32, 32)),
+        "GeoNet": (hrfuse.GeoNet(3, 8), r(2, 3, 16, 16)),
+        "RefineResidual": (hrfuse.RefineResidual(24, 8, 3), r(2, 16, 16, 16),
+                           r(2, 8, 16, 16)),
+        "SRRegressClsFeatureGeo": (height_model.SRRegressClsFeatureGeo(
+            super_mid=8, geo_mid=4, isaggre=True, chans_build=7, sr_chans=8,
+            **trunk), r(2, 11, 32, 32), r(2, 8, 128, 128)),
+        "SRRegressClsFeatureRefine": (height_model.SRRegressClsFeatureRefine(
+            super_mid=8, isaggre=True, chans_build=7, sr_chans=8, **trunk),
+            r(2, 8, 32, 32), r(2, 8, 128, 128)),
+        "EDSR": (edsr.EDSR(in_chans=4, n_resblocks=2, n_feats=8,
+                           return_features="hr"), r(2, 4, 16, 16)),
+        "ESPCN": (ESPCN(4), r(2, 3, 16, 16)),
+        "RRDBNetSimple": (rrdbnet.RRDBNetSimple(num_feat=8, num_block=2,
+                                                num_grow_ch=8), r(2, 4, 16, 16)),
+        "SRRegress": (sr_regress.SRRegress(**trunk), r(1, 8, 8, 8)),
+        "SRRegressClsEDSR": (sr_regress.SRRegressClsEDSR(**trunk), r(1, 8, 8, 8)),
+        "SRRegressClsDecision": (sr_regress.SRRegressClsDecision(super_mid=8, **trunk),
+                                 r(1, 8, 32, 32)),
+    }
+    errs = {}
+    for i, (name, (model, *inputs)) in enumerate(cases.items()):
+        errs[name] = _lt_model_card_vs_cpu(name, _lt_random(model, i), *inputs)
+    log(f"[long_tail] models card vs CPU, max |a-b| / max |b| (tol "
+        f"{LT_MODEL_TOL:.0e}): " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    return errs
+
+
+def long_tail_losses_card_vs_cpu():
+    """The segmentation losses, the SSIM losses and the _pt metrics, the
+    card against the CPU."""
+    from srbh_tpu_torch.losses import segmentation as seg
+    from srbh_tpu_torch.losses import ssim_loss
+    from srbh_tpu_torch.metrics import image
+
+    gen = torch.Generator().manual_seed(11)
+    logits = torch.randn(2, 3, 16, 16, generator=gen) * 1.5
+    labels = torch.randint(0, 3, (2, 16, 16), generator=gen)
+    bin_logits = torch.randn(2, 1, 16, 16, generator=gen) * 1.5
+    target = torch.randint(0, 2, (2, 1, 16, 16), generator=gen).float()
+    bd_pred = torch.rand(2, 1, 16, 16, generator=gen)
+    bd_target = torch.randint(0, 256, (2, 1, 16, 16), generator=gen).float()
+    dist = torch.from_numpy(seg.one_hot_distance_transform(labels.numpy(), 3))
+    edts = torch.from_numpy(seg.edts_penalized_map(labels.numpy() > 0) + 1.0)
+    dp, dg = torch.rand(2, 16, 16, generator=gen) * 4, torch.rand(2, 16, 16, generator=gen) * 4
+    multi = ["soft_dice_loss", "iou_loss", "tversky_loss", "focal_tversky_loss",
+             "asym_loss", "ss_loss", "gdice_loss", "gdice_loss_v2",
+             "penalty_gdice_loss", "focal_loss", "topk_ce_loss",
+             "weighted_ce_loss", "hausdorff_er_loss", "dc_and_ce_loss",
+             "dc_and_topk_loss", "explog_loss", "ce_dice_iou_loss"]
+    binary = ["bce_ssim_iou_loss", "bce_iou_loss", "bce_ssim_loss", "bce_dice_loss"]
+    cases = {n: (getattr(seg, n), logits, labels) for n in multi}
+    cases.update({n: (getattr(seg, n), bin_logits, target) for n in binary})
+    cases.update({
+        "lovasz_softmax": (lambda x, y: seg.lovasz_softmax(torch.softmax(x, 1), y),
+                           logits, labels),
+        "dist_penalized_ce": (lambda x, y: seg.dist_penalized_ce(x, y, None),
+                              logits, labels),
+        "dist_binary_dice_loss": (seg.dist_binary_dice_loss, logits[:, :2], labels.clamp(max=1), edts),
+        "boundary_loss": (seg.boundary_loss, logits, dist),
+        "dc_and_bd_loss": (seg.dc_and_bd_loss, logits, labels, dist),
+        "hausdorff_dt_loss": (seg.hausdorff_dt_loss, logits[:, :2], labels.clamp(max=1), dp, dg),
+        "ce_mse_loss": (seg.ce_mse_loss, logits, labels, bd_pred, bd_target),
+        "bce_ssim_iou_bd_loss": (seg.bce_ssim_iou_bd_loss, bin_logits, target,
+                                 bd_pred, bd_target),
+        "nll_loss": (seg.nll_loss, torch.log_softmax(torch.randn(64, 3, generator=gen), 1),
+                     torch.randint(0, 3, (64,), generator=gen)),
+    })
+    a = torch.rand(1, 1, 176, 176, generator=gen, dtype=torch.float64) * 255
+    b = (a + torch.randn(a.shape, generator=gen, dtype=torch.float64) * 25).clamp(0, 255)
+    small = a[:, :, :24, :24] / 255, b[:, :, :24, :24] / 255
+    cases.update({
+        "ssim_loss (f64)": (lambda x, y: ssim_loss.ssim_loss(x, y, 1.0), *small),
+        "log_ssim_loss (f64)": (ssim_loss.log_ssim_loss, *small),
+        "ms_ssim_loss (f64)": (ssim_loss.ms_ssim_loss, a, b),
+    })
+    errs = {name: _lt_loss_card_vs_cpu(name, fn, *args)
+            for name, (fn, *args) in cases.items()}
+    worst_v = max(errs.items(), key=lambda kv: kv[1][0])
+    worst_g = max(errs.items(), key=lambda kv: kv[1][1])
+    log(f"[long_tail] {len(errs)} losses card vs CPU: largest value error "
+        f"{worst_v[1][0]:.2e} ({worst_v[0]}, tol {LT_LOSS_TOL:.0e}), largest "
+        f"gradient error {worst_g[1][1]:.2e} ({worst_g[0]}, tol {LT_GRAD_TOL:.0e})")
+    x = torch.rand(3, 3, 32, 32, generator=gen)
+    y = (x + torch.randn(x.shape, generator=gen) * 0.1).clamp(0, 1)
+    pt_err = 0.0
+    for name in ("calculate_psnr_pt", "calculate_ssim_pt", "calculate_cpsnr_pt"):
+        for kw in (dict(), dict(crop_border=2, test_y_channel=True)):
+            fn = getattr(image, name)
+            want, got = fn(x, y, **kw), fn(x.cuda(), y.cuda(), **kw).cpu()
+            pt_err = max(pt_err, ((got - want).abs() / want.abs()).max().item())
+    log(f"[long_tail] _pt metrics card vs CPU: max relative {pt_err:.2e} "
+        f"(tol {LT_MODEL_TOL:.0e})")
+    if not pt_err <= LT_MODEL_TOL:
+        raise AssertionError("[long_tail] _pt metrics disagree card vs CPU")
+    return {"losses": len(errs), "loss_value_err": worst_v[1][0],
+            "loss_grad_err": worst_g[1][1], "pt_err": pt_err}
+
+
+def long_tail_towers_card_vs_cpu():
+    """LPIPS, CLIP, CLIPA and SigLIP towers at small widths."""
+    from srbh_tpu_torch.models import clip, lpips
+
+    gen = torch.Generator().manual_seed(12)
+    cases = {
+        "LPIPS": (lpips.LPIPS(), torch.rand(2, 3, 64, 64, generator=gen),
+                  torch.rand(2, 3, 64, 64, generator=gen)),
+        "CLIP": (clip.CLIPVisionTransformer(32, 8, 16, 2, 2, 8),
+                 torch.rand(2, 3, 32, 32, generator=gen)),
+        "CLIPA": (clip.CLIPVisionTransformer(28, 7, 16, 2, 2, 8, False, 24, False,
+                                             "avg", True),
+                  torch.rand(2, 3, 28, 28, generator=gen)),
+        "SigLIP": (clip.MAPVisionTransformer(28, 7, 16, 2, 2, 24),
+                   torch.rand(2, 3, 28, 28, generator=gen)),
+    }
+    errs = {name: _lt_model_card_vs_cpu(name, _lt_random(m, 20 + i), *inputs)
+            for i, (name, (m, *inputs)) in enumerate(cases.items())}
+    log("[long_tail] towers card vs CPU, max |a-b| / max |b|: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    return errs
+
+
+def _lt_rate(label, fn, items, smi):
+    """Items/s of ``fn`` over back-to-back calls that fill at least
+    LT_WINDOW_S and LT_MIN_CALLS, synchronised about ten times a window (the
+    chunk sized by one synchronised call after the warm-up), and the peak
+    memory of the timed calls."""
+    with torch.no_grad():
+        out = [torch.as_tensor(t) for t in _lt_outputs(fn())]
+        torch.cuda.synchronize()
+        if not all(torch.isfinite(t).all() for t in out):
+            raise AssertionError(f"[long_tail] {label}: outputs not finite")
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        chunk = math.ceil(LT_WINDOW_S / 10 / (time.perf_counter() - t0))
+        torch.cuda.reset_peak_memory_stats()
+        calls, t0 = 0, time.perf_counter()
+        while calls < LT_MIN_CALLS or time.perf_counter() - t0 < LT_WINDOW_S:
+            for _ in range(chunk):
+                fn()
+            torch.cuda.synchronize()
+            calls += chunk
+        secs = time.perf_counter() - t0
+    rate = items * calls / secs
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[long_tail] {label}: {rate:.1f} /s ({calls} calls in {secs:.2f} s), "
+        f"peak {peak:.2f} GiB, outputs {[tuple(t.shape) for t in out]} ({smi})")
+    return {"rate": rate, "peak_gib": peak, "calls": calls, "seconds": secs}
+
+
+def long_tail_full_width(smi):
+    """Part A's models at full width on 64x64 tiles, float32."""
+    from srbh_tpu_torch.models import edsr, height_model, rrdbnet, sr_regress
+    from srbh_tpu_torch.models.espcn import ESPCN
+
+    gen = torch.Generator().manual_seed(13)
+    timed = {}
+    x = torch.rand(LT_TILES, 11, 64, 64, generator=gen).cuda()
+    sr = _lt_random(rrdbnet.RRDBNet(num_block=23), 30).cuda()
+    with torch.no_grad():
+        fea = sr(x[:, :3], features_only=True)
+    del sr
+    for name, model, args in (
+            ("SRRegressClsFeatureGeo", height_model.SRRegressClsFeatureGeo(
+                isaggre=True, chans_build=7), (x, fea)),
+            ("SRRegressClsFeatureRefine", height_model.SRRegressClsFeatureRefine(
+                isaggre=True, chans_build=7), (x[:, :8], fea))):
+        m = _lt_random(model, 31).cuda()
+        timed[name] = _lt_rate(f"{name} batch {LT_TILES} (tiles/s)",
+                               lambda: m(*args), LT_TILES, smi)
+        del m
+    del fea
+    xs = x[:LT_TILES_SR, :8]
+    for name, model in (("SRRegress", sr_regress.SRRegress()),
+                        ("SRRegressClsEDSR", sr_regress.SRRegressClsEDSR()),
+                        ("SRRegressClsDecision", sr_regress.SRRegressClsDecision())):
+        m = _lt_random(model, 32).cuda()
+        timed[name] = _lt_rate(f"{name} batch {LT_TILES_SR} (tiles/s)",
+                               lambda: m(xs), LT_TILES_SR, smi)
+        if name == "SRRegress":
+            with torch.no_grad():
+                profile(f"{name} batch {LT_TILES_SR}", lambda: m(xs))
+        del m
+    for name, model, inp in (
+            ("EDSR", edsr.EDSR(), x[:, :3]), ("ESPCN", ESPCN(), x[:, :3]),
+            ("RRDBNetSimple", rrdbnet.RRDBNetSimple(), x[:, :4])):
+        m = _lt_random(model, 33).cuda()
+        timed[name] = _lt_rate(f"{name} batch {LT_TILES} (tiles/s)",
+                               lambda: m(inp), LT_TILES, smi)
+        del m
+    torch.cuda.empty_cache()
+    return timed
+
+
+def long_tail_learned(smi):
+    """The learned metrics at full width on random weights."""
+    from srbh_tpu_torch.metrics import learned
+    from srbh_tpu_torch.models.layers import init_weights
+    from srbh_tpu_torch.models.lpips import LPIPS
+
+    gen = torch.Generator().manual_seed(14)
+    rng = np.random.default_rng(14)
+    timed = {}
+    imgs = torch.rand(LT_IMAGES, 3, LT_SIDE, LT_SIDE, generator=gen).cuda()
+    imgs2 = (imgs + 0.1 * torch.randn(imgs.shape, generator=gen).cuda()).clamp(0, 1)
+    lp = _lt_random(LPIPS(), 40).cuda()
+    lp_sd = lp.state_dict()
+    timed["lpips"] = _lt_rate(f"LPIPS-alex, {LT_IMAGES} images of {LT_SIDE}^2 "
+                              "(images/s)",
+                              lambda: learned.calculate_lpips_pt(imgs, imgs2, lp_sd, lp),
+                              LT_IMAGES, smi)
+    img = rng.uniform(0, 255, (LT_SIDE, LT_SIDE, 3)).astype(np.float32)
+    img2 = np.clip(img + rng.normal(0, 25, img.shape), 0, 255).astype(np.float32)
+    for preset in ("clip-ViT-B/16", "siglip-ViT-SO400M-14"):
+        tower = _lt_random(learned.clip_vision_model(preset), 41)
+        sd = tower.state_dict()
+        want = learned.calculate_clipscore(img, img2, sd, model=tower, device="cpu")
+        size = tower.image_size
+        x_cpu = learned.resize_nearest(torch.from_numpy(img).permute(2, 0, 1)[None] / 255,
+                                       size)
+        with torch.no_grad():
+            f_cpu = tower(x_cpu)
+        card = tower.cuda()
+        got = learned.calculate_clipscore(img, img2, card.state_dict(), model=card,
+                                          device="cuda")
+        with torch.no_grad():
+            f_card = card(x_cpu.cuda()).cpu()
+        err = (f_card - f_cpu).abs().max().item() / f_cpu.abs().max().item()
+        score_err = abs(got - want) / abs(want)
+        log(f"[long_tail] {preset} at {size}: embedding card vs CPU "
+            f"{err:.2e}, CLIPScore {got:.6f} vs {want:.6f} ({score_err:.2e}; "
+            f"tol {LT_MODEL_TOL:.0e})")
+        if not (err <= LT_MODEL_TOL and score_err <= LT_MODEL_TOL):
+            raise AssertionError(f"[long_tail] {preset} disagrees card vs CPU")
+        csd = card.state_dict()
+        timed[preset] = _lt_rate(
+            f"{preset} CLIPScore_pt, {LT_IMAGES} image pairs (images/s)",
+            lambda: learned.calculate_clipscore_pt(imgs, imgs2, csd, model=card),
+            LT_IMAGES, smi)
+        del tower, card, csd, sd
+        torch.cuda.empty_cache()
+    # CLIPA bigG-336: ~1.8 G parameters, built and drawn on the card
+    t0 = time.perf_counter()
+    with torch.device("cuda"):
+        big = learned.clip_vision_model("clipa-ViT-bigG-14")
+    init_weights(big, torch.Generator(device="cuda").manual_seed(42))
+    big.eval()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in big.parameters())
+    log(f"[long_tail] CLIPA bigG-336 built on the card: {n_params / 1e9:.3f} G "
+        f"parameters in {time.perf_counter() - t0:.1f} s")
+    bsd = big.state_dict()
+    timed["clipa-ViT-bigG-14"] = _lt_rate(
+        f"clipa-ViT-bigG-14 CLIPScore_pt, {LT_IMAGES} image pairs (images/s)",
+        lambda: learned.calculate_clipscore_pt(imgs, imgs2, bsd,
+                                               "clipa-ViT-bigG-14", model=big),
+        LT_IMAGES, smi)
+    timed["clipa_params"] = n_params
+    del big, bsd
+    torch.cuda.empty_cache()
+    return timed
+
+
+def long_tail_pt_vs_host(smi):
+    """The _pt metrics on the card against the host float64 metrics on 12
+    images of 256^2; records the difference and both times, changes
+    nothing. The _pt cPSNR keeps the reference's 255^2 numerator on [0, 1]
+    images, 20 log10(255) dB above the host's: that offset is taken off
+    before the comparison."""
+    from srbh_tpu_torch.metrics import image
+
+    rng = np.random.default_rng(15)
+    hr = rng.uniform(0, 1, (LT_IMAGES, LT_SIDE, LT_SIDE, 3))
+    sr = np.clip(hr + rng.normal(0, 0.05, hr.shape), 0, 1)
+    x = torch.tensor(sr.transpose(0, 3, 1, 2), dtype=torch.float32).cuda()
+    y = torch.tensor(hr.transpose(0, 3, 1, 2), dtype=torch.float32).cuda()
+    out = {}
+    for metric in ("psnr", "ssim", "cpsnr"):
+        host_fn = getattr(image, f"calculate_{metric}")
+        pt_fn = getattr(image, f"calculate_{metric}_pt")
+        t0 = time.perf_counter()
+        host = np.array([host_fn(a * 255, b * 255) for a, b in zip(sr, hr)])
+        host_s = time.perf_counter() - t0
+        if metric == "cpsnr":  # the _pt form pools its batch: one image each
+            pt = torch.cat([pt_fn(x[i:i + 1], y[i:i + 1])[None]
+                            for i in range(LT_IMAGES)])
+        else:
+            pt = pt_fn(x, y)
+        pt = pt.cpu().numpy()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pt_fn(x, y)
+        torch.cuda.synchronize()
+        pt_s = time.perf_counter() - t0
+        if metric == "cpsnr":  # the reference's 255^2 numerator on [0, 1]
+            pt = pt - 20 * np.log10(255.0)
+        diff = float(np.abs(pt - host).max())
+        out[metric] = {"max_abs_diff": diff, "host_s": host_s, "pt_s": pt_s}
+        log(f"[long_tail] {metric} of {LT_IMAGES} images of {LT_SIDE}^2: _pt on "
+            f"the card vs host float64: largest difference {diff:.3e}; host "
+            f"{host_s:.3f} s, _pt {1e3 * pt_s:.3f} ms ({smi})")
+    return out
+
+
+def phase_long_tail(wa, smi):
+    """Phase 10: the remaining models, losses and metrics."""
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    wa.window_attention.launches = 0
+    timed = {"models_card_vs_cpu": long_tail_models_card_vs_cpu(),
+             "losses_card_vs_cpu": long_tail_losses_card_vs_cpu(),
+             "towers_card_vs_cpu": long_tail_towers_card_vs_cpu()}
+    timed["card_vs_cpu_s"] = time.perf_counter() - t_phase
+    timed["full_width"] = long_tail_full_width(smi)
+    timed["learned"] = long_tail_learned(smi)
+    timed["pt_vs_host"] = long_tail_pt_vs_host(smi)
+    timed["launches"] = wa.window_attention.launches
+    timed["phase_s"] = time.perf_counter() - t_phase
+    log(f"[long_tail] window_attention launches: {timed['launches']}; phase "
+        f"{timed['phase_s']:.1f} s")
+    return timed
+
+
 GAN_BATCH, GAN_LQ, GAN_PAIRS, GAN_EVAL_PAIRS, GAN_TIMED = 12, 64, 72, 12, 4
 # the GAN step card vs CPU: the tolerances of tests/test_torch_gan_step.py
 GAN_TOL, GAN_SN_TOL, GAN_EMA_TOL = 1e-4, 1e-5, 1e-6
@@ -1971,6 +2386,8 @@ def main() -> int:
     log(f"[city] summary {json.dumps(city)}")
     entry_points = phase_entry(wa, smi)
     log(f"[entry] summary {json.dumps(entry_points)}")
+    long_tail = phase_long_tail(wa, smi)
+    log(f"[long_tail] summary {json.dumps(long_tail)}")
     gan = phase_gan(wa, smi)
     log(f"[gan] summary {json.dumps(gan)}")
 
@@ -1990,6 +2407,7 @@ def main() -> int:
                              "main_test": entry_points["sequence"]["launches"],
                              "nosuper": entry_points["nosuper_launches"],
                              "swinir_harness_main": entry_points["harness_launches"],
+                             "long_tail": long_tail["launches"],
                              "gan": gan["launches"]},
         "max_abs_err": max(r["max_abs_err"] for n, r in rows.items()
                            if "bf16" not in n),

@@ -206,6 +206,45 @@ def _basic_block(sd: StateDict, prefix: str, p: Mapping, s: Mapping) -> None:
         _bn(sd, f"{prefix}.downsample.1", p["down_bn"], s["down_bn"])
 
 
+def _blocks(sd: StateDict, prefix: str, p: Mapping, s: Mapping,
+            jax_name: str) -> None:
+    """Three basic blocks in a Sequential: JAX ``{jax_name}{i}`` ->
+    ``{prefix}.{i}``."""
+    for i in range(3):
+        _basic_block(sd, f"{prefix}.{i}", p[f"{jax_name}{i}"],
+                     s[f"{jax_name}{i}"])
+
+
+def _upsampler(sd: StateDict, prefix: str, p: Mapping) -> None:
+    """PixelShuffleUpsampler: JAX ``conv_{k}`` -> ``{prefix}.{2k}``."""
+    for k in range(len(p)):
+        _conv(sd, f"{prefix}.{2 * k}", p[f"conv_{k}"])
+
+
+def _hrfuse_residual(sd: StateDict, prefix: str, p: Mapping,
+                     s: Mapping) -> None:
+    _upsampler(sd, f"{prefix}.upsampler", p["upsampler"])
+    _blocks(sd, f"{prefix}.fuse", p, s, "fuse")
+    _conv(sd, f"{prefix}.conv_last", p["conv_last"])
+
+
+def _refine_residual(sd: StateDict, prefix: str, p: Mapping,
+                     s: Mapping) -> None:
+    _blocks(sd, f"{prefix}.fuse", p, s, "fuse")
+    _conv(sd, f"{prefix}.conv_last", p["conv_last"])
+
+
+def _hrfuse_conv_bn(sd: StateDict, prefix: str, p: Mapping,
+                    s: Mapping) -> None:
+    """HRFuse / HRFuseX2: the JAX ``fuse{0,1}`` ConvBNActs -> the flat
+    ``{prefix}.fuse`` Sequential's ``0/1`` and ``3/4``."""
+    for j, name in ((0, "fuse0"), (3, "fuse1")):
+        _conv(sd, f"{prefix}.fuse.{j}", p[name]["conv"])
+        _bn(sd, f"{prefix}.fuse.{j + 1}", p[name]["bn"], s[name]["bn"])
+    _upsampler(sd, f"{prefix}.upsampler", p["upsampler"])
+    _conv(sd, f"{prefix}.conv_last", p["conv_last"])
+
+
 def _encoder_blocks(encoder_name: str):
     """The JAX name of each MBConv block of ``encoder_name`` in order, and
     whether it has an expansion conv."""
@@ -235,12 +274,13 @@ def _encoder_state_dict(sd: StateDict, prefix: str, ep: Mapping, es: Mapping,
         _bn(sd, f"{t}._bn2", bp["project_bn"], bs["project_bn"])
 
 
-def _trunk_state_dict(p: Mapping, s: Mapping, encoder_name: str) -> StateDict:
-    """The encoder and the two U-Net decoders both height models share:
-    ``encoder.*``, ``decoder{1,2}.blocks.{i}.conv{1,2}.{0,1}``."""
+def _trunk_state_dict(p: Mapping, s: Mapping, encoder_name: str,
+                      decoders=("decoder1", "decoder2")) -> StateDict:
+    """The encoder and the U-Net decoders the height models share:
+    ``encoder.*``, ``{decoder}.blocks.{i}.conv{1,2}.{0,1}``."""
     sd: StateDict = {}
     _encoder_state_dict(sd, "encoder.", p["encoder"], s["encoder"], encoder_name)
-    for dname in ("decoder1", "decoder2"):
+    for dname in decoders:
         nblocks = len([k for k in p[dname] if k.startswith("block")])
         for bi in range(nblocks):
             for ci in (1, 2):
@@ -255,23 +295,22 @@ def _trunk_state_dict(p: Mapping, s: Mapping, encoder_name: str) -> StateDict:
 def height_model_state_dict(variables: Mapping,
                             encoder_name: str = "efficientnet-b4",
                             isaggre: bool = True) -> StateDict:
-    """SRRegressClsFeature: ``encoder.*`` (efficientnet-pytorch names),
-    ``decoder{1,2}.blocks.{i}.conv{1,2}.{0,1}``, ``hrfeat.{i}.*``,
-    ``{reg,seg}.upsampler.{2k}/fuse.{i}/conv_last`` and ``aggre_height``."""
+    """SRRegressClsFeature and its Geo / Refine variants: ``encoder.*``
+    (efficientnet-pytorch names), ``decoder{1,2}.blocks.{i}.conv{1,2}.{0,1}``,
+    ``hrfeat.{i}.*``, ``{reg,seg}.upsampler.{2k}/fuse.{i}/conv_last`` and
+    ``aggre_height``; ``geoprior.{i}.*`` and ``refine.fuse.{i}.*`` /
+    ``refine.conv_last`` where the JAX tree has them."""
     p, s = variables["params"], variables["batch_stats"]
     sd = _trunk_state_dict(p, s, encoder_name)
-    for i in range(3):
-        _basic_block(sd, f"hrfeat.{i}", p["hrfeat"][f"block{i}"],
-                     s["hrfeat"][f"block{i}"])
+    _blocks(sd, "hrfeat", p["hrfeat"], s["hrfeat"], "block")
     for head in ("reg", "seg"):
-        hp, hs = p[head], s[head]
-        for k in range(len(hp["upsampler"])):
-            _conv(sd, f"{head}.upsampler.{2 * k}", hp["upsampler"][f"conv_{k}"])
-        for i in range(3):
-            _basic_block(sd, f"{head}.fuse.{i}", hp[f"fuse{i}"], hs[f"fuse{i}"])
-        _conv(sd, f"{head}.conv_last", hp["conv_last"])
+        _hrfuse_residual(sd, head, p[head], s[head])
     if isaggre:
         _conv(sd, "aggre_height", p["aggre_height"])
+    if "geoprior" in p:
+        _blocks(sd, "geoprior", p["geoprior"], s["geoprior"], "block")
+    if "refine" in p:
+        _refine_residual(sd, "refine", p["refine"], s["refine"])
     return sd
 
 
@@ -283,10 +322,8 @@ def nosuper_state_dict(variables: Mapping, encoder_name: str = "efficientnet-b4"
     p, s = variables["params"], variables["batch_stats"]
     sd = _trunk_state_dict(p, s, encoder_name)
     for head in ("reg", "seg"):
-        hp = p[head]
-        for k in range(len(hp["upsampler"])):
-            _conv(sd, f"{head}.upsampler.{2 * k}", hp["upsampler"][f"conv_{k}"])
-        _conv(sd, f"{head}.conv_last", hp["conv_last"])
+        _upsampler(sd, f"{head}.upsampler", p[head]["upsampler"])
+        _conv(sd, f"{head}.conv_last", p[head]["conv_last"])
     if isaggre:
         _conv(sd, "aggre_height", p["aggre_height"])
     return sd
@@ -440,4 +477,137 @@ def swinir_state_dict(variables: Mapping, depths: Sequence[int] = (6, 6, 6, 6),
     elif "upsample" in p:
         for k in range(len(p["upsample"])):
             _conv(sd, f"upsample.{2 * k}", p["upsample"][f"conv_{k}"])
+    return sd
+
+
+def espcn_state_dict(variables: Mapping) -> StateDict:
+    """ESPCN: ``conv1``, ``conv2``, ``conv3``."""
+    sd: StateDict = {}
+    for i in (1, 2, 3):
+        _conv(sd, f"conv{i}", variables["params"][f"conv{i}"])
+    return sd
+
+
+def _edsr(sd: StateDict, prefix: str, p: Mapping) -> None:
+    _conv(sd, f"{prefix}head.0", p["head"])
+    n = len([k for k in p if k.startswith("body_") and k != "body_conv"])
+    for i in range(n):
+        _conv(sd, f"{prefix}body.{i}.body.0", p[f"body_{i}"]["conv1"])
+        _conv(sd, f"{prefix}body.{i}.body.2", p[f"body_{i}"]["conv2"])
+    _conv(sd, f"{prefix}body.{n}", p["body_conv"])
+    _upsampler(sd, f"{prefix}tail.0", p["upsampler"])
+    _conv(sd, f"{prefix}tail.1", p["tail"])
+
+
+def edsr_state_dict(variables: Mapping) -> StateDict:
+    """EDSR: ``head.0``, ``body.{i}.body.{0,2}``, ``body.{n}``,
+    ``tail.0.{2k}``, ``tail.1``."""
+    sd: StateDict = {}
+    _edsr(sd, "", variables["params"])
+    return sd
+
+
+def rrdbnet_simple_state_dict(variables: Mapping,
+                              num_block: int = 23) -> StateDict:
+    """RRDBNetSimple: ``conv_first``, ``RRDB_trunk.{i}.RDB{r}.conv{c}``,
+    ``trunk_conv``, ``upconv1/2``, ``HRconv``, ``conv_last``."""
+    p = variables["params"]
+    sd: StateDict = {}
+    _conv(sd, "conv_first", p["conv_first"])
+    for i in range(num_block):
+        for r in (1, 2, 3):
+            for c in (1, 2, 3, 4, 5):
+                _conv(sd, f"RRDB_trunk.{i}.RDB{r}.conv{c}",
+                      p[f"body_{i}"][f"rdb{r}"][f"conv{c}"])
+    for name in ("trunk_conv", "upconv1", "upconv2", "HRconv", "conv_last"):
+        _conv(sd, name, p[name])
+    return sd
+
+
+def sr_regress_state_dict(variables: Mapping,
+                          encoder_name: str = "efficientnet-b4") -> StateDict:
+    """The trainable-SR ablations, told apart by their heads: SRRegress
+    (``head``), SRRegressClsEDSR (``super_out``, ``seg{1,2}`` convs) and
+    SRRegressClsDecision (``seg{1,2}`` HRFuseX2 blocks); ``super_res.*``
+    are :func:`edsr_state_dict`'s names."""
+    p, s = variables["params"], variables["batch_stats"]
+    single = "head" in p
+    sd = _trunk_state_dict(p, s, encoder_name,
+                           ("decoder",) if single else ("decoder1", "decoder2"))
+    _edsr(sd, "super_res.", p["super_res"])
+    if single:
+        _conv(sd, "head", p["head"])
+    elif "super_out" in p:
+        for name in ("super_out", "seg1", "seg2"):
+            _conv(sd, name, p[name])
+    else:
+        for name in ("seg1", "seg2"):
+            _hrfuse_conv_bn(sd, name, p[name], s[name])
+    return sd
+
+
+def lpips_state_dict(variables: Mapping) -> StateDict:
+    """LPIPS-alex: ``net.slice{s}.{i}`` (torchvision's ``features``
+    indices), ``lin{t}.model.1.weight`` and lpips' ``scaling_layer``
+    constants."""
+    from srbh_tpu_torch.models.lpips import _ALEX_CONVS, _SLICES, SCALE, SHIFT
+
+    p = variables["params"]
+    sd: StateDict = {
+        "scaling_layer.shift": torch.tensor(SHIFT).view(1, 3, 1, 1),
+        "scaling_layer.scale": torch.tensor(SCALE).view(1, 3, 1, 1)}
+    for t, (idx, *_rest) in enumerate(_ALEX_CONVS):
+        s = next(s for s, (a, b) in enumerate(_SLICES, 1) if a <= idx < b)
+        _conv(sd, f"net.slice{s}.{idx}", p["net"][f"conv{t}"])
+        _conv(sd, f"lin{t}.model.1", p[f"lin{t}"])
+    return sd
+
+
+def clip_visual_state_dict(variables: Mapping, layers: int = 12) -> StateDict:
+    """CLIPVisionTransformer: OpenAI CLIP's / open_clip's ``visual.*``
+    names without the prefix (the inverse of ``convert_clip_visual``)."""
+    p = variables["params"]
+    sd: StateDict = {
+        "class_embedding": _t(p["class_embedding"]),
+        "positional_embedding": _t(p["positional_embedding"]),
+        "proj": _t(p["proj"])}
+    _conv(sd, "conv1", p["conv1"])
+    if "ln_pre" in p:
+        _norm(sd, "ln_pre", p["ln_pre"])
+    for i in range(layers):
+        bp, t = p[f"resblock_{i}"], f"transformer.resblocks.{i}."
+        _norm(sd, t + "ln_1", bp["ln_1"])
+        sd[t + "attn.in_proj_weight"] = _t(np.asarray(bp["attn_in"]["kernel"]).T)
+        sd[t + "attn.in_proj_bias"] = _t(bp["attn_in"]["bias"])
+        _dense(sd, t + "attn.out_proj", bp["attn_out"])
+        _norm(sd, t + "ln_2", bp["ln_2"])
+        _dense(sd, t + "mlp.c_fc", bp["mlp_c_fc"])
+        _dense(sd, t + "mlp.c_proj", bp["mlp_c_proj"])
+    _norm(sd, "ln_post", p["ln_post"])
+    return sd
+
+
+def siglip_visual_state_dict(variables: Mapping, layers: int = 27) -> StateDict:
+    """MAPVisionTransformer: timm's SigLIP trunk names, open_clip's
+    ``visual.trunk.*`` without the prefix (the inverse of
+    ``convert_siglip_visual``)."""
+    p = variables["params"]
+    width = np.asarray(p["latent"]).shape[-1]
+    sd: StateDict = {"pos_embed": _t(p["pos_embed"])[None],
+                     "attn_pool.latent": _t(p["latent"]).reshape(1, 1, width)}
+    _conv(sd, "patch_embed.proj", p["patch_embed"])
+    for i in range(layers):
+        bp, t = p[f"resblock_{i}"], f"blocks.{i}."
+        _norm(sd, t + "norm1", bp["ln_1"])
+        _dense(sd, t + "attn.qkv", bp["attn_in"])
+        _dense(sd, t + "attn.proj", bp["attn_out"])
+        _norm(sd, t + "norm2", bp["ln_2"])
+        _dense(sd, t + "mlp.fc1", bp["mlp_c_fc"])
+        _dense(sd, t + "mlp.fc2", bp["mlp_c_proj"])
+    _norm(sd, "norm", p["norm"])
+    for jax_name, name in (("pool_q", "q"), ("pool_kv", "kv"),
+                           ("pool_proj", "proj"), ("pool_mlp_fc1", "mlp.fc1"),
+                           ("pool_mlp_fc2", "mlp.fc2")):
+        _dense(sd, f"attn_pool.{name}", p[jax_name])
+    _norm(sd, "attn_pool.norm", p["pool_norm"])
     return sd

@@ -38,12 +38,18 @@ def perceptual_loss(feats_x: Sequence[torch.Tensor],
     return total * loss_weight
 
 
+def _bce_with_logits(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Mean sigmoid cross-entropy of logits: the GAN's vanilla loss and the
+    segmentation composites' BCE term."""
+    return F.binary_cross_entropy_with_logits(logits, target)
+
+
 def gan_loss(pred: torch.Tensor, target_is_real: bool, gan_type: str = "vanilla",
              is_disc: bool = False, real_label: float = 1.0,
              fake_label: float = 0.0, loss_weight: float = 1.0) -> torch.Tensor:
     if gan_type == "vanilla":
         target = real_label if target_is_real else fake_label
-        loss = F.binary_cross_entropy_with_logits(pred, torch.full_like(pred, target))
+        loss = _bce_with_logits(pred, torch.full_like(pred, target))
     elif gan_type == "lsgan":
         target = real_label if target_is_real else fake_label
         loss = ((pred - target) ** 2).mean()

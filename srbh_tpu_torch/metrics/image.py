@@ -10,12 +10,19 @@ factor, the SwinIR harness's JPEG metric). Images are [0, 255] arrays, HWC
 or CHW. The
 SSIM window is ``ops/usm.py``'s ``cv2_gaussian_kernel``, the same formula as
 the JAX package's ``gaussian_kernel_1d``.
+
+The batched ``_pt`` twins (:148-206; the reference's torch functions,
+SR/psnr_ssim.py:203-232, 283-318, 443-490) take NCHW tensors in [0, 1] and
+run where the tensors lie: ``calculate_psnr_pt`` and ``calculate_ssim_pt``
+return one value per image, ``calculate_cpsnr_pt`` one for the batch.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 from scipy.ndimage import convolve
 
+from srbh_tpu_torch.ops import ssim as device_ssim
 from srbh_tpu_torch.ops.usm import cv2_gaussian_kernel
 
 
@@ -127,6 +134,53 @@ def calculate_cpsnr(img, img2, crop_border=0, input_order="HWC",
     if best_mse == 0:
         return float("inf")
     return 10.0 * np.log10(255.0 * 255.0 / best_mse)
+
+
+def _prepare_pt(img, img2, crop_border: int, test_y_channel: bool):
+    if img.shape != img2.shape:
+        raise ValueError(f"Image shapes differ: {img.shape} vs {img2.shape}")
+    if crop_border != 0:
+        img = img[:, :, crop_border:-crop_border, crop_border:-crop_border]
+        img2 = img2[:, :, crop_border:-crop_border, crop_border:-crop_border]
+    if test_y_channel:
+        img, img2 = device_ssim.rgb_to_y(img), device_ssim.rgb_to_y(img2)
+    return img.float(), img2.float()
+
+
+def calculate_psnr_pt(img, img2, crop_border: int = 0,
+                      test_y_channel: bool = False, **kwargs):
+    """PSNR of each image, ``10 log10(1 / (mse + 1e-8))``: (N,)."""
+    img, img2 = _prepare_pt(img, img2, crop_border, test_y_channel)
+    mse = torch.mean((img - img2) ** 2, dim=(1, 2, 3))
+    return 10.0 * torch.log10(1.0 / (mse + 1e-8))
+
+
+def calculate_ssim_pt(img, img2, crop_border: int = 0,
+                      test_y_channel: bool = False, **kwargs):
+    """SSIM of each image, the VALID Gaussian SSIM at the x255 scale: (N,)."""
+    img, img2 = _prepare_pt(img, img2, crop_border, test_y_channel)
+    return device_ssim.ssim(img * 255.0, img2 * 255.0)
+
+
+def calculate_cpsnr_pt(img, img2, crop_border: int = 0,
+                       test_y_channel: bool = False, **kwargs):
+    """cPSNR of the batch: the least whole-batch MSE over the 9x9 grid of
+    offsets, each with a whole-batch bias per channel. The reference's quirk
+    stays: the inputs are [0, 1] and the numerator is 255^2."""
+    img, img2 = _prepare_pt(img, img2, crop_border, test_y_channel)
+    max_offset = 8
+    h, w = img.shape[2], img.shape[3]
+    ch, cw = h - max_offset, w - max_offset
+    mses = []
+    for ro in range(max_offset + 1):
+        for co in range(max_offset + 1):
+            a = img[:, :, ro: ro + ch, co: co + cw]
+            b = img2[:, :, max_offset - ro: max_offset - ro + ch,
+                     max_offset - co: max_offset - co + cw]
+            bias = torch.mean(a - b, dim=(0, 2, 3), keepdim=True)
+            mses.append(torch.mean(torch.square(a - (b + bias))))
+    best = torch.min(torch.stack(mses))
+    return 10.0 * torch.log10(255.0 * 255.0 / best)
 
 
 def _blocking_effect_factor(im: np.ndarray, block_size: int = 8) -> float:

@@ -93,16 +93,19 @@ class PixelShuffleUpsampler(nn.Sequential):
 
 @torch.no_grad()
 def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Seeded random init, drawn on the CPU so every device gets the same
-    weights: conv and linear weights U(+-1/sqrt(fan_in)) (torch's default
-    scale), biases 0, norms scale 1 / shift 0, BN running stats 0 / 1.
-    Other parameters (SwinIR's relative-position tables) N(0, 0.02)
-    clipped to 2 std. Returns ``module``."""
+    """Seeded random init, drawn on the generator's device (a CPU generator
+    gives every device the same weights; a CUDA one builds a large model in
+    place on the card): conv and linear weights U(+-1/sqrt(fan_in))
+    (torch's default scale), biases 0, norms scale 1 / shift 0, BN running
+    stats 0 / 1. Other parameters (SwinIR's relative-position tables, the
+    CLIP towers' embeddings) N(0, 0.02) clipped to 2 std. Returns
+    ``module``."""
+    dev = generator.device
     done = set()
     for m in module.modules():
         if isinstance(m, (nn.Conv2d, nn.Linear)):
             bound = m.weight[0].numel() ** -0.5
-            m.weight.copy_(torch.empty(m.weight.shape).uniform_(
+            m.weight.copy_(torch.empty(m.weight.shape, device=dev).uniform_(
                 -bound, bound, generator=generator))
             if m.bias is not None:
                 m.bias.zero_()
@@ -116,6 +119,6 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
         done.update(id(p) for p in m.parameters(recurse=False))
     for p in module.parameters():
         if id(p) not in done:
-            p.copy_(torch.empty(p.shape).normal_(0.0, 0.02, generator=generator)
-                    .clamp_(-0.04, 0.04))
+            p.copy_(torch.empty(p.shape, device=dev).normal_(
+                0.0, 0.02, generator=generator).clamp_(-0.04, 0.04))
     return module

@@ -8,6 +8,13 @@ output *without* the LeakyReLU that the image path applies
 (SR/rrdbnet_arch.py:225-240). State-dict names are the reference's:
 ``conv_first``, ``body.{i}.rdb{r}.conv{c}``, ``conv_body``, ``conv_up1/2``,
 ``conv_hr``, ``conv_last``.
+
+:class:`RRDBNetSimple` is the older generator (SR/RRDBNet.py:14-78, the JAX
+package's ``RRDBNetSimple``): a 4-channel input, the same dense blocks, and
+two nearest-x2 + conv stages before ``HRconv`` and ``conv_last``, under the
+old names ``RRDB_trunk.{i}.RDB{r}.conv{c}``, ``trunk_conv``, ``upconv1/2``,
+``HRconv``. Like :class:`RRDBNet` it takes no ``fused`` argument: the JAX
+package's regrouped dense block is a TPU layout of the same convs.
 """
 from __future__ import annotations
 
@@ -90,3 +97,40 @@ class RRDBNet(nn.Module):
         if features_only:
             return hr
         return self.conv_last(_lrelu(hr))
+
+
+class _RRDBSimple(nn.Module):
+    """:class:`RRDB` under the old generator's names ``RDB1..3``."""
+
+    def __init__(self, num_feat: int, num_grow_ch: int):
+        super().__init__()
+        self.RDB1 = ResidualDenseBlock(num_feat, num_grow_ch)
+        self.RDB2 = ResidualDenseBlock(num_feat, num_grow_ch)
+        self.RDB3 = ResidualDenseBlock(num_feat, num_grow_ch)
+
+    def forward(self, x):
+        return self.RDB3(self.RDB2(self.RDB1(x))) * 0.2 + x
+
+
+class RRDBNetSimple(nn.Module):
+    """The older x4 ESRGAN generator."""
+
+    def __init__(self, num_in_ch: int = 4, num_out_ch: int = 3,
+                 num_feat: int = 64, num_block: int = 23,
+                 num_grow_ch: int = 32):
+        super().__init__()
+        self.conv_first = tconv(num_in_ch, num_feat)
+        self.RRDB_trunk = nn.Sequential(
+            *[_RRDBSimple(num_feat, num_grow_ch) for _ in range(num_block)])
+        self.trunk_conv = tconv(num_feat, num_feat)
+        self.upconv1 = tconv(num_feat, num_feat)
+        self.upconv2 = tconv(num_feat, num_feat)
+        self.HRconv = tconv(num_feat, num_feat)
+        self.conv_last = tconv(num_feat, num_out_ch)
+
+    def forward(self, x):
+        feat = self.conv_first(x)
+        feat = feat + self.trunk_conv(self.RRDB_trunk(feat))
+        feat = _lrelu(self.upconv1(upsample_nearest(feat, 2)))
+        feat = _lrelu(self.upconv2(upsample_nearest(feat, 2)))
+        return self.conv_last(_lrelu(self.HRconv(feat)))

@@ -57,7 +57,12 @@ def test_port_has_the_slice_modules():
                  "predict.__main__", "ops.aggregate", "ops.device_aug",
                  "ops.usm", "losses.sr", "models.vgg", "models.discriminators",
                  "train.sr_trainer", "train.sr_driver", "train.sr_config",
-                 "metrics.image", "metrics.writers", "data.png"):
+                 "metrics.image", "metrics.writers", "data.png",
+                 "models.edsr", "models.espcn", "models.sr_regress",
+                 "models.lpips", "models.clip", "ops.ssim",
+                 "losses.ssim_loss", "losses.segmentation", "metrics.learned",
+                 "train.optimizers", "utils.eval_seg", "utils.ramps",
+                 "utils.cam", "utils.profiler"):
         assert f"srbh_tpu_torch.{name}" in mods
 
 
@@ -88,6 +93,9 @@ def test_port_has_no_try_statements():
 def _entry_points():
     from srbh_tpu_torch import entry
     from srbh_tpu_torch.data.pipeline import DataLoader
+    from srbh_tpu_torch.metrics import learned
+    from srbh_tpu_torch.models.clip import CLIPVisionTransformer
+    from srbh_tpu_torch.models.lpips import LPIPS
     from srbh_tpu_torch.predict import __main__ as predict_cli
     from srbh_tpu_torch.predict.device_stitcher import DeviceMosaicAccumulator
     from srbh_tpu_torch.predict.predictor import (
@@ -102,7 +110,10 @@ def _entry_points():
     from srbh_tpu_torch.train.sr_driver import eval_sr, train_sr
     from srbh_tpu_torch.train.sr_trainer import RealESRGANTrainer
     from srbh_tpu_torch.train.steps import make_train_step
+    from srbh_tpu_torch.utils.profiler import StepTimer
 
+    img = torch.zeros(8, 8, 3).numpy()
+    tiny_clip = CLIPVisionTransformer(8, 4, 8, 1, 2, 4)
     return {
         "flagship": lambda: entry.flagship(tiny=True),
         "entry": lambda: entry.entry(),
@@ -126,6 +137,11 @@ def _entry_points():
         "swinir_harness.run_folder": lambda: swinir_harness.run_folder(
             "color_dn", "", None),
         "swinir_harness.main": lambda: swinir_harness.main([]),
+        "calculate_clipscore": lambda: learned.calculate_clipscore(
+            img, img, tiny_clip.state_dict(), model=tiny_clip),
+        "calculate_lpips": lambda: learned.calculate_lpips(
+            img, img, LPIPS().state_dict()),
+        "StepTimer": lambda: StepTimer(1),
     }
 
 
@@ -140,7 +156,8 @@ def _entry_points():
                                   "eval_sr", "trainer.main_test",
                                   "train.__main__.main",
                                   "swinir_harness.run_folder",
-                                  "swinir_harness.main"])
+                                  "swinir_harness.main", "calculate_clipscore",
+                                  "calculate_lpips", "StepTimer"])
 def test_entry_points_need_a_card_by_default(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
