@@ -31,9 +31,11 @@ two training paths and its two test entry points:
    against the CPU on a small input;
 5. the flagship height step: the tiny configuration on the card against the
    CPU, then the full-width RRDBNet-23 + EfficientNet-B4 step through
-   ``make_city_step`` at batch 32 in float32 and bfloat16: output shapes,
-   dtypes, finite values, build-softmax sums, tiles/s and peak memory (and
-   the memory allocated when the phase starts);
+   ``make_city_step`` at batch 32 in float32 and bfloat16, through
+   ``python -m srbh_tpu_torch.bench``'s ``main``: output shapes, dtypes,
+   finite values, build-softmax sums, the ``tools/_trace.py`` guard's
+   counts, tiles/s, TFLOP/s, ``mfu``, peak memory, idle share and leading
+   kernels (and the memory allocated when the phase starts);
 6. the height model's training path: one ``make_train_step`` of the tiny
    configuration on the card against the CPU (loss, rmse and log-vars
    within 1e-4 x (1 + |b|); gradients against float64, and parameters
@@ -50,10 +52,12 @@ two training paths and its two test entry points:
    the launches of the hand kernel on both (none); train tiles/s of
    ``make_train_step`` alone on batches already on the card in float32 and
    bfloat16, and in float32 with ``device_aug`` and with ``norm`` too, with
-   peak memory and a ``profile`` line each; and the trainer's time per step
+   peak memory, idle share and leading kernels each, all through
+   ``tools/train_bench.py``'s ``main``; and the trainer's time per step
    with its loader in steady state
-   (512 tiles, the prefetch fill left out), beside the loader alone and
-   the time to the first batch;
+   (512 tiles, the prefetch fill left out; the loader raises on an epoch
+   short of its 32 batches), beside the loader alone and the time to the
+   first batch;
 7. the city predictor: ``predict_city`` of the tiny configuration on the
    card against the CPU on a synthetic 200x150 city; then a synthetic city
    of 2048 x 2048 source pixels (S2, S1, a WSF disc of half the area, a
@@ -67,8 +71,9 @@ two training paths and its two test entry points:
    pass's tiles fed to both stitchers (byte-equal mosaics), and the numbers:
    windows/s end to end by stitcher, of the step alone and of the loader
    alone, ms per batch of each stitcher's ``add_batch``, seconds of
-   finalize and GeoTIFF writes, device and host peak memory, and a
-   ``profile`` line of the device-stitch run;
+   finalize and GeoTIFF writes, and device and host peak memory (the
+   device-stitched path's idle share and kernels come from phase 11's
+   ``predict_stress``, on a city a quarter the size);
 8. the test entry points: ``train.trainer.main_test`` of the tiny
    configuration on the card against the CPU, on one ``torch.save``
    checkpoint (RMSE and ``_he`` rows within
@@ -100,7 +105,8 @@ two training paths and its two test entry points:
    ``acc1.txt``; the hand kernel's launches over both (none); ms per step
    of ``train_sr`` in steady state (host stamps as its steps return), eval
    images/s, and the GAN step alone on batches on the card in bfloat16 and
-   float32 (tiles/s, peak memory, a ``profile`` of one step by kernel);
+   float32 through ``tools/sr_train_bench.py``'s ``main`` (tiles/s, peak
+   memory, the device time of one step by kernel);
 10. the long tail, run after phase 8 and before the GAN: the remaining
    models (HRFuse, HRFuseX2, GeoNet, RefineResidual, the Geo and Refine
    height variants, EDSR, ESPCN, RRDBNetSimple, the three SRRegress
@@ -115,7 +121,30 @@ two training paths and its two test entry points:
    CLIP ViT-B/16 and SigLIP SO400M card against CPU on one image pair and
    timed on 12, and CLIPA bigG-336 built on the card (images/s); and the
    ``_pt`` metrics against the host float64 metrics on 12 images of
-   256x256 (the largest difference and both times).
+   256x256 (the largest difference and both times);
+11. the measurement and serving tools, run after phase 10 and before the
+   GAN: each tool's ``main`` once at full width and short length, its JSON
+   records parsed and checked (this card's name and power limit; finite,
+   positive rates; ``mfu`` at most 1.05; a host-clock step time within
+   10 % of the same repeats on the card's clock, CUDA events, and no
+   shorter than the device busy time of one profiled step):
+   ``profile_flagship`` (float32;
+   its ``full`` stage within 10 % of phase 5's bench rate in float32),
+   ``conv_microbench``, ``train_diag`` (batch 16), ``loader_bench``,
+   ``composed_bench`` (its ``device`` and ``device_norm`` batches
+   bit-equal), ``predict_stress`` on a 1024 x 1024 city (the device
+   stitcher ran; the two stitchers' outputs byte-equal; the city path's
+   idle share and kernels from one device-stitched run under the
+   profiler), ``ref_bench``;
+   ``export_model`` of the full-width flagship's weights in float32 with a
+   symbolic batch, loaded back and held to the eager step at batch 3 and
+   32 (floats within 1e-4 x (1 + |b|), quantised outputs within 1 LSB on at
+   most 0.1 % of pixels); and ``python -m srbh_tpu_torch.convert --arch
+   height`` on the full-width model's weights in the JAX package's npz
+   form, the file loaded with ``strict=True`` giving the same step output.
+   The bench, ``train_bench`` and ``sr_train_bench`` run in phases 5, 6 and
+   9, in place of those phases' own timing loops, so that no rate is timed
+   twice. The hand kernel's launches over the phase (none).
 
 TF32 is off for the whole run (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32`` are False), so float32 means
@@ -135,7 +164,6 @@ import dataclasses
 import json
 import math
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -143,9 +171,6 @@ import time
 import numpy as np
 import torch
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit)
-HBM_BYTES_PER_S = 3.35e12
-FLOP_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
 
 ATTN_TOL_F32 = 2e-5  # as tests/test_pallas_attention.py: f32 sums in another order
 ATTN_TOL_BF16 = 3.2e-2  # two bf16 ulps at |o| < 4: the kernel keeps p in f32
@@ -158,7 +183,6 @@ TRAIN_TOL = 1e-4  # train step: loss, rmse, log-vars |a - b| <= tol * (1 + |b|)
 TRAIN_GRAD_TOL = (0.1, 1e-4)
 TRAIN_BATCH, TRAIN_TILES, TRAIN_STEPS = 16, 64, 4
 LOOP_TILES = 512  # the steady-state loader timing: 32 batches of 16
-TIMED_STEPS = 6
 SWIN_BATCH = 8  # 64x64 tiles: B_ = 512 windows a call, 94 MB of q/k/v/o > L2
 # phase 8: the harness's HR images (square sides; the x4 LR a quarter, 24 or
 # 32 pixels once padded), each task's tile and overlap (a tile smaller than
@@ -170,7 +194,6 @@ HARNESS_TILES = {"classical_sr": (16, 8), "color_dn": (48, 16)}
 ENTRY_TRAIN_TILES, ENTRY_TEST_TILES, ENTRY_WORKERS = 32, 16, 4
 ENTRY_TOL = 1e-4
 CITY_BATCH = 32
-CITY_STEPS = 4
 # phase 7: source pixels of the full-width city (20.48 km at 10 m: the order
 # of the reference's *_large urban centers), the CLI's batch and the device
 # stitcher's, and the quantised-output limit (<= 1 LSB on <= 0.1 % of
@@ -210,8 +233,10 @@ def attn_bytes(h, b_, n, d, dtype, nw):
 def attn_bound_ms(h, b_, n, d, dtype, nw):
     """Least time for one call: its bytes at the HBM rate against its
     4*h*B_*N^2*d operations at the peak rate of the input type."""
+    from srbh_tpu_torch.tools.timing import HBM_BYTES_PER_S, PEAK_FLOP_PER_S
+
     t_bytes = attn_bytes(h, b_, n, d, dtype, nw) / HBM_BYTES_PER_S
-    t_ops = 4 * h * b_ * n * n * d / FLOP_PER_S[dtype]
+    t_ops = 4 * h * b_ * n * n * d / PEAK_FLOP_PER_S[str(dtype)[6:]]
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -244,46 +269,29 @@ def off_pair(t):
 
 
 def profile(label, fn, warm=True, host_ops=True):
-    """Device time by kernel for one call of ``fn`` (torch.profiler), and the
-    device's idle share of the call's wall time, after one call unprofiled
-    if ``warm``. ``host_ops=False`` traces the device only (a long call's
-    host ops take the profiler minutes to sort). Returns (ms, kernel name)
-    rows, empty if the profiler saw no device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as torch_profile
+    """Device time by kernel for one call of ``fn`` and the device's idle
+    share of the call's wall time (``tools.timing.profile_window``), after
+    one call unprofiled if ``warm``. ``host_ops=False`` traces the device
+    only (a long call's host ops take the profiler minutes to sort). Returns
+    (ms, kernel name) rows, empty if the profiler saw no device time."""
+    from srbh_tpu_torch.tools.timing import profile_window
 
     if warm:
         fn()
-    torch.cuda.synchronize()
-    activities = [ProfilerActivity.CUDA] + [ProfilerActivity.CPU] * host_ops
-    with torch_profile(activities=activities) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    rows = [(e.self_device_time_total / 1e3, e.key)
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    rows = sorted((r for r in rows if r[0] > 0), reverse=True)
-    busy = sum(ms for ms, _ in rows)
-    if busy == 0:
+    r = profile_window(fn, host_ops, top=None)
+    if r["idle_share"] is None:
         log(f"[profile] {label}: device time not measured (no device events)")
         return []
-    log(f"[profile] {label}: wall {wall_ms:.3f} ms (profiler on), device "
-        f"busy {busy:.3f} ms, idle share {max(0.0, 1 - busy / wall_ms):.3f}")
-    for ms, key in rows[:8]:
-        log(f"[profile]   {ms:9.3f} ms {100 * ms / busy:5.1f}%  {key[:90]}")
-    return rows
-
-
-def nvidia_smi():
-    """The card's name and power limit, as ``nvidia-smi`` gives them."""
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    log(f"[profile] {label}: wall {r['wall_ms']:.3f} ms (profiler on), device "
+        f"busy {r['busy_ms']:.3f} ms, idle share {r['idle_share']:.3f}")
+    for ms, key in r["kernels"][:8]:
+        log(f"[profile]   {ms:9.3f} ms {100 * ms / r['busy_ms']:5.1f}%  {key[:90]}")
+    return r["kernels"]
 
 
 def phase_device():
+    from srbh_tpu_torch.tools.timing import nvidia_smi
+
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
     log(f"[device] {name} count={torch.cuda.device_count()} "
@@ -465,7 +473,7 @@ def phase_swinir(wa, harness):
     return launches, diff, times, profiled_ms
 
 
-def phase_flagship(entry, make_city_step):
+def phase_flagship(entry, make_city_step, smi):
     log(f"[flagship] memory allocated at the start: "
         f"{torch.cuda.memory_allocated() / 2**20:.1f} MiB")
     rng = np.random.default_rng(2)
@@ -491,48 +499,23 @@ def phase_flagship(entry, make_city_step):
         if d.max().item() > 1 or frac > 1e-3:
             raise AssertionError(f"tiny make_city_step {name} card vs CPU")
 
-    # full width: RRDBNet-23 + EfficientNet-B4, batch 32 tiles of 64x64
-    model, sr, _ = entry.flagship(device="cuda", seed=0)
-    results = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        step = make_city_step(model, sr, dtype=dtype, device="cuda")
-        batches = [torch.tensor(rng.uniform(0, 1, (CITY_BATCH, 64, 64, 8))
-                                .astype(np.float32), device="cuda")
-                   for _ in range(CITY_STEPS)]
-        ctx = (torch.autocast("cuda", dtype=dtype) if dtype != torch.float32
-               else torch.autocast("cuda", enabled=False))
-        with ctx:
-            raw = entry.forward(model, sr, batches[0])
-        if not all(torch.isfinite(t.float()).all() for t in raw):
-            raise AssertionError(f"flagship {dtype} outputs not finite")
-        h, b = step(batches[0])
-        torch.cuda.synchronize()
-        if (h.dtype, tuple(h.shape)) != (torch.uint16, (CITY_BATCH, 256, 256)) or \
-           (b.dtype, tuple(b.shape)) != (torch.uint8, (CITY_BATCH, 256, 256, 7)):
-            raise AssertionError(f"flagship outputs {h.dtype}{tuple(h.shape)} "
-                                 f"{b.dtype}{tuple(b.shape)}")
-        sums = b.int().sum(-1)
-        off = (sums - 255).abs().max().item()
-        if off > 4:  # 7 classes each rounded by at most 0.5
-            raise AssertionError(f"build softmax sums off 255 by {off}")
-        torch.cuda.reset_peak_memory_stats()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for x in batches:
-            step(x)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        tps = CITY_BATCH * CITY_STEPS / dt
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        name = str(dtype)[6:]
-        log(f"[flagship] full width {name}: {tps:.2f} tiles/s at batch "
-            f"{CITY_BATCH} ({CITY_STEPS} steps, {dt:.3f} s), peak "
-            f"{peak:.2f} GiB, build sums within {off} of 255, height max "
-            f"{h.int().max().item()} dm")
-        results[name] = tps
-        profile(f"flagship make_city_step {name}, batch {CITY_BATCH}",
-                lambda: step(batches[0]))
-    return results
+    # full width: RRDBNet-23 + EfficientNet-B4, batch 32 tiles of 64x64,
+    # through the bench (its checks: finite outputs, shapes and dtypes,
+    # build sums within 4 of 255; the conv guard)
+    from srbh_tpu_torch import bench
+
+    records = run_tool("flagship", bench.main, ["--batch", str(CITY_BATCH),
+                                                "--repeats", "5"], smi)
+    for rec in records:
+        log(f"[flagship] full width {rec['dtype']}: {rec['value']:.2f} tiles/s "
+            f"at batch {CITY_BATCH}, {rec['tflop_per_s']:.2f} TFLOP/s, mfu "
+            f"{rec['mfu']:.4f}, peak {rec['peak_gib']:.2f} GiB, idle share "
+            f"{rec['idle_share']:.3f}, build sums within {rec['build_sum_off']} "
+            f"of 255, height max {rec['height_max_dm']} dm")
+        for ms, key in rec["kernels"][:4]:
+            log(f"[flagship]   {rec['dtype']}: {ms:9.3f} ms  {key[:90]}")
+    check_convs_seen(records[0])
+    return records
 
 
 class ScalarLog:
@@ -797,54 +780,26 @@ def check_checkpoint(cfg, state):
         raise AssertionError(f"checkpoint does not reload identically: {diff[:5]}")
 
 
-def time_steps(cfg, smi):
-    """tiles/s of ``make_train_step`` alone on batches already on the card:
-    float32 and bfloat16 with host-augmented batches, then float32 with the
-    augmentation (``device_aug``) and also the normalisation (``norm``) in
-    the step; peak memory and a profile of one step each."""
-    from srbh_tpu_torch.train.state import TrainState
-    from srbh_tpu_torch.train.steps import make_train_step
-    from srbh_tpu_torch.train.trainer import build_models
+def time_steps(smi):
+    """tiles/s of ``make_train_step`` alone on batches already on the card,
+    through ``tools/train_bench.py``'s ``main``: float32 and bfloat16 with
+    host-augmented batches, then float32 with the augmentation
+    (``--device_aug``) and also the normalisation (``--norm``) in the step;
+    peak memory, idle share and leading kernels of one step each."""
+    from srbh_tpu_torch.tools import train_bench
 
-    rng = np.random.default_rng(5)
-    on_card = lambda b: {k: torch.as_tensor(v, device="cuda") for k, v in b.items()}
-    host = [on_card(train_batch(rng, TRAIN_BATCH)) for _ in range(2)]
-    aug = [{"image": b["image"], "height": b["height"].to(torch.uint8)} for b in host]
-    raw = [on_card(raw_batch(rng, TRAIN_BATCH)) for _ in range(2)]
-    modes = [("float32", torch.float32, {}, host),
-             ("bfloat16", torch.bfloat16, {}, host),
-             ("float32 device_aug", torch.float32, dict(device_aug=True), aug),
-             ("float32 device_aug + norm", torch.float32,
-              dict(device_aug=True, norm=NORM), raw)]
     results = {}
-    for name, dtype, kw, batches in modes:
-        model, sr = build_models(cfg)
-        state = TrainState(model.to("cuda"))
-        step = make_train_step(model, sr, seed=cfg.seed, dtype=dtype,
-                               device="cuda", **kw)
-        for i in range(2):
-            step(state, batches[i % 2], 1e-3)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        for i in range(TIMED_STEPS):
-            m = step(state, batches[i % 2], 1e-3)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        tps = TRAIN_BATCH * TIMED_STEPS / dt
-        if not (torch.isfinite(m["loss"]) and torch.isfinite(m["rmse"])):
-            raise AssertionError(f"train step {name} loss not finite")
-        log(f"[train] make_train_step {name}, batch {TRAIN_BATCH}, batches on "
-            f"the card: {tps:.2f} tiles/s ({1e3 * dt / TIMED_STEPS:.2f} ms per "
-            f"step over {TIMED_STEPS} steps), loss {m['loss'].item():.4f}, peak "
-            f"{peak:.2f} GiB; {smi}")
-        results[name] = dict(tiles_per_s=tps, ms_per_step=1e3 * dt / TIMED_STEPS,
-                             peak_gib=peak)
-        profile(f"train step {name}, batch {TRAIN_BATCH}",
-                lambda: step(state, batches[0], 1e-3))
-        del state, step, model, sr
-        torch.cuda.empty_cache()
+    for label, argv in (("", ["--dtype", "float32", "bfloat16"]),
+                        (" device_aug", ["--dtype", "float32", "--device_aug"]),
+                        (" device_aug + norm", ["--dtype", "float32", "--norm"])):
+        for rec in run_tool("train", train_bench.main, [
+                "--batch", str(TRAIN_BATCH), "--repeats", "3", "--steps", "2",
+                *argv], smi):
+            results[rec["dtype"] + label] = dict(
+                tiles_per_s=rec["value"], ms_per_step=rec["median_ms"],
+                peak_gib=rec["peak_gib"], idle_share=rec["idle_share"])
+            for ms, key in rec["kernels"][:4]:
+                log(f"[train]   {rec['dtype']}{label}: {ms:9.3f} ms  {key[:90]}")
     return results
 
 
@@ -959,7 +914,7 @@ def phase_train(wa, smi):
         del normed
         torch.cuda.empty_cache()
         loop = time_loader(cfg, smi)
-    steps = time_steps(cfg, smi)
+    steps = time_steps(smi)
     return {"launches": launches, "device_aug_launches": aug_launches,
             "steps": steps, "loop_ms": loop}
 
@@ -1286,13 +1241,6 @@ def phase_city(wa, entry, smi):
                         read_mosaic(dev_paths), host_mosaic)
         del host_mosaic
         stage("identical tiles, step and loader alone, compare")
-        runs = iter(range(10))
-        profile(f"predict_city, device stitch, batch {DEVICE_STITCH_BATCH}",
-                lambda: predict_city(ds, step, os.path.join(root, f"prof{next(runs)}"),
-                                     "synth", batch_size=DEVICE_STITCH_BATCH,
-                                     stitch="device"), warm=False,
-                host_ops=False)
-        stage("profile of a device-stitch run")
         reader_mib = sum(os.path.getsize(p) for p in (ds.s2path, ds.s1path)) / 2**20
         del model, sr, step
     torch.cuda.empty_cache()
@@ -2091,7 +2039,7 @@ def phase_long_tail(wa, smi):
     return timed
 
 
-GAN_BATCH, GAN_LQ, GAN_PAIRS, GAN_EVAL_PAIRS, GAN_TIMED = 12, 64, 72, 12, 4
+GAN_BATCH, GAN_LQ, GAN_PAIRS, GAN_EVAL_PAIRS = 12, 64, 72, 12
 # the GAN step card vs CPU: the tolerances of tests/test_torch_gan_step.py
 GAN_TOL, GAN_SN_TOL, GAN_EMA_TOL = 1e-4, 1e-5, 1e-6
 # G and D parameters beyond 1e-4 per step card vs CPU: share of elements
@@ -2222,44 +2170,22 @@ def check_gan_reload(trainer, state, logdir):
 
 def time_gan_steps(smi):
     """tiles/s of the full-width GAN step alone on batches already on the
-    card in bfloat16 and float32 (the step turns cuDNN's autotuning on for
-    itself), peak memory and a profile of one step by kernel each."""
-    from srbh_tpu_torch.train.sr_trainer import RealESRGANTrainer
+    card, through ``tools/sr_train_bench.py``'s ``main`` (the step turns
+    cuDNN's autotuning on for itself): bfloat16 and float32, peak memory
+    and the device time by kernel of one step each."""
+    from srbh_tpu_torch.tools import sr_train_bench
 
-    rng = np.random.default_rng(10)
-    batches = [(torch.tensor(rng.uniform(0, 1, (GAN_BATCH, GAN_LQ, GAN_LQ, 3))
-                             .astype(np.float32), device="cuda"),
-                torch.tensor(rng.uniform(0, 1, (GAN_BATCH, 4 * GAN_LQ, 4 * GAN_LQ, 3))
-                             .astype(np.float32), device="cuda")) for _ in range(2)]
     results = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        name = str(dtype)[6:]
-        trainer = RealESRGANTrainer(dtype=dtype)
-        state = trainer.init(0, (GAN_BATCH, GAN_LQ, GAN_LQ, 3), device="cuda")
-        step = trainer.make_step()
-        for i in range(2):
-            step(state, *batches[i % 2])
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        for i in range(GAN_TIMED):
-            m = step(state, *batches[i % 2])
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        if not all(torch.isfinite(v) for v in m.values()):
-            raise AssertionError(f"GAN step {name}: losses not finite")
-        results[name] = dict(tiles_per_s=GAN_BATCH * GAN_TIMED / dt,
-                             ms_per_step=1e3 * dt / GAN_TIMED, peak_gib=peak)
-        log(f"[gan] GAN step {name}, batch {GAN_BATCH}, lq {GAN_LQ} -> gt "
-            f"{4 * GAN_LQ}, batches on the card: {results[name]['tiles_per_s']:.2f} "
-            f"tiles/s ({results[name]['ms_per_step']:.1f} ms per step over "
-            f"{GAN_TIMED} steps), peak {peak:.2f} GiB, l_g_total "
-            f"{m['l_g_total'].item():.4f}; {smi}")
-        profile(f"GAN step {name}, batch {GAN_BATCH}", lambda: step(state, *batches[0]),
-                warm=False, host_ops=False)
-        del state, step, trainer
-        torch.cuda.empty_cache()
+    for rec in run_tool("gan", sr_train_bench.main, [
+            "--batch", str(GAN_BATCH), "--dtype", "bfloat16", "float32",
+            "--repeats", "3", "--steps", "2"], smi):
+        results[rec["dtype"]] = dict(tiles_per_s=rec["value"],
+                                     ms_per_step=rec["median_ms"],
+                                     peak_gib=rec["peak_gib"],
+                                     idle_share=rec["idle_share"])
+        for ms, key in rec["kernels"][:8]:
+            log(f"[gan]   {rec['dtype']}: {ms:9.3f} ms "
+                f"{100 * ms / rec['busy_ms']:5.1f}%  {key[:90]}")
     return results
 
 
@@ -2362,6 +2288,260 @@ def phase_gan(wa, smi):
     return {"launches": launches, **timed}
 
 
+TOOLS_CITY_SIDE = 1024  # predict_stress in phase 11 (phase 7 keeps 2048)
+EXPORT_BATCHES = (3, CITY_BATCH)  # one symbolic-batch artifact serves both
+BENCH_AGREE = 0.10  # the bench's flagship rate against profile_flagship's full
+# a tool's host-clock step time against the same repeats on the card's clock
+# (CUDA events) and against the device busy time of one profiled step
+TIMER_AGREE = 0.10
+MFU_MAX = 1.05
+
+
+def run_tool(tag, tool_main, argv, smi):
+    """Run a tool's ``main(argv)`` once, echo a short line for each JSON
+    record it prints, check what every record must hold (this card's name;
+    finite, positive rates; ``mfu`` in (0, 1.05]) and return the records."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        tool_main(argv)
+    wall = time.perf_counter() - t0
+    records = [json.loads(line) for line in buf.getvalue().splitlines()
+               if line.startswith("{")]
+    name = torch.cuda.get_device_name(0)
+    if not records:
+        raise AssertionError(f"{tool_main.__module__} printed no record")
+    for rec in records:
+        short = {k: rec[k] for k in ("metric", "mode", "num_workers", "stitcher",
+                                     "dtype", "batch", "value", "unit",
+                                     "median_ms", "q1_ms", "q3_ms", "repeats",
+                                     "mfu", "peak_gib", "idle_share")
+                 if rec.get(k) is not None}
+        log(f"[{tag}] {rec['tool']} {json.dumps(short)}")
+        if rec["device"] != name or rec["power_limit"] != smi:
+            raise AssertionError(f"{rec['tool']} names {rec['device']!r}, "
+                                 f"{rec['power_limit']!r}: not this card")
+        for key in ("value", "median_ms", "tflop_per_s", "mfu", "repeats"):
+            v = rec.get(key, 1)
+            if v is None or not (math.isfinite(v) and v > 0):
+                raise AssertionError(f"{rec['tool']} {key} = {v}")
+        if rec.get("mfu") is not None and rec["mfu"] > MFU_MAX:
+            raise AssertionError(f"{rec['tool']} mfu {rec['mfu']} > {MFU_MAX}")
+        check_timers(tag, rec)
+    log(f"[{tag}] {tool_main.__module__}.main {' '.join(argv)}: {wall:.1f} s; {smi}")
+    return records
+
+
+def check_timers(tag, rec):
+    """Hold a record's host-clock step time (``median_ms``) against a timer
+    that does not read the host's clock: the same repeats timed by CUDA
+    events (``event_ms``), within ``TIMER_AGREE``; and no step shorter than
+    the card's busy time in one profiled step (``busy_ms``). A record
+    without those keys passes."""
+    med, ev, busy = rec.get("median_ms"), rec.get("event_ms"), rec.get("busy_ms")
+    if med is None or ev is None:
+        return
+    log(f"[{tag}] {rec['tool']} {rec.get('dtype', '')} timers: host {med:.3f} ms, "
+        f"card's clock {ev:.3f} ms (ratio {med / ev:.3f}), device busy "
+        + ("not profiled" if busy is None else f"{busy:.3f} ms (busy / host "
+           f"{busy / med:.3f})"))
+    if abs(med / ev - 1) > TIMER_AGREE:
+        raise AssertionError(f"{rec['tool']}: host {med} ms against CUDA events {ev} ms")
+    if busy is not None and busy > (1 + TIMER_AGREE) * med:
+        raise AssertionError(f"{rec['tool']}: a step of {med} ms, but the card "
+                             f"was busy {busy} ms in one")
+
+
+def check_convs_seen(rec):
+    """The ``tools/_trace.py`` guard's counts in a record: every conv module
+    of the path ran in the timed step, and the profiler saw each call and
+    tied device time to each."""
+    c = rec["convs"]
+    log(f"[tools] {rec['tool']} {rec.get('dtype', '')} conv guard: {json.dumps(c)}")
+    if not (c["modules_called"] == c["conv_modules"]
+            and c["profiled_on_device"] == c["profiled_convs"]
+            == c["conv_calls"] >= c["conv_modules"]):
+        raise AssertionError(f"{rec['tool']}: the guard missed convolutions: {c}")
+
+
+def quantised_close(label, got, want):
+    d = (got.int() - want.int()).abs()
+    share = (d > 0).float().mean().item()
+    log(f"[tools] {label}: max LSB diff {d.max().item()}, share differing "
+        f"{share:.2e}")
+    if d.max().item() > 1 or share > QUANT_SHARE:
+        raise AssertionError(f"{label}: beyond 1 LSB on {QUANT_SHARE} of pixels")
+
+
+def tools_export(root, model, sr, smi):
+    """``tools/export_model.py``'s ``main`` on the full-width flagship's
+    weights: float32 with a symbolic batch, loaded back and held to the
+    eager step at batch 3 and 32 (``EXPORT_BATCHES``). The bfloat16 form
+    is held to the eager step in the CPU tests
+    (``tests/test_torch_export.py``)."""
+    from srbh_tpu_torch.tools import export_model
+
+    dev = next(model.parameters()).device
+    ckpt, sr_ckpt = os.path.join(root, "model.pt"), os.path.join(root, "sr.pt")
+    path = os.path.join(root, "flagship.pt2")
+    torch.save(model.state_dict(), ckpt)
+    torch.save(sr.state_dict(), sr_ckpt)
+    t0 = time.perf_counter()
+    export_model.main([path, "--dtype", "float32", "--ckpt", ckpt,
+                       "--sr-ckpt", sr_ckpt])
+    fn = export_model.load_exported(path)
+    out = {"export_s": time.perf_counter() - t0,
+           "export_mb": os.path.getsize(path) / 1e6}
+    gen = torch.Generator(device=dev).manual_seed(11)
+    for n in EXPORT_BATCHES:
+        x = torch.rand((n, 64, 64, 8), generator=gen, device=dev)
+        with torch.no_grad():
+            got = fn(x)
+        with torch.inference_mode():
+            want = export_model.Serving(model, sr, torch.float32)(x)
+        for k, g, w in zip(("height", "build"), got[:2], want[:2]):
+            err = ((g - w).abs() / (1 + w.abs())).max().item()
+            log(f"[tools] export float32, batch {n}, {k}: max |a-b|/(1+|b|) "
+                f"{err:.3e} (tol {FLAGSHIP_TOL:.0e})")
+            if not err <= FLAGSHIP_TOL:
+                raise AssertionError(f"export {k} disagrees at batch {n}")
+        for k, g, w in zip(("height u16", "build u8"), got[2:], want[2:]):
+            quantised_close(f"export float32 batch {n} {k}", g, w)
+    log(f"[tools] export float32: {out['export_s']:.1f} s (export, save, "
+        f"load), {out['export_mb']:.1f} MB; {smi}")
+    return out
+
+
+def tools_convert(root, model, sr):
+    """``python -m srbh_tpu_torch.convert``'s ``main`` on a full-width height
+    checkpoint in the JAX package's npz form: the file it writes, loaded
+    with ``strict=True`` into a model of other weights, gives the step
+    output of the state it came from."""
+    from srbh_tpu_torch import convert
+    from srbh_tpu_torch.predict.predictor import make_city_step
+
+    dev = next(model.parameters()).device
+    tree = convert.height_model_variables(model.state_dict())
+    tree["log_vars"] = {"w1": np.float32(0.25), "w2": np.float32(-0.5),
+                        "w3": np.float32(0.75)}
+    tree["meta"] = {"epoch": np.int32(20), "best_acc": np.float32(3.25)}
+    npz, out = os.path.join(root, "height.npz"), os.path.join(root, "checkpoint20")
+    convert.save_tree_npz(npz, tree)
+    convert.main([npz, out, "--arch", "height"])
+    payload = torch.load(out, map_location="cpu", weights_only=True)
+    fresh = copy.deepcopy(model)
+    with torch.no_grad():
+        for t in fresh.state_dict().values():
+            if t.is_floating_point():
+                t.uniform_(-1, 1)
+    fresh.load_state_dict(payload["state_dict"], strict=True)
+    lv = torch.cat(payload["log_vars"]).tolist()
+    if (payload["epoch"], payload["best_acc"], lv) != (20, 3.25, [0.25, -0.5, 0.75]):
+        raise AssertionError(f"converted bookkeeping {payload['epoch']} "
+                             f"{payload['best_acc']} {lv}")
+    x = torch.rand((CITY_BATCH, 64, 64, 8), device=dev,
+                   generator=torch.Generator(device=dev).manual_seed(12))
+    got = make_city_step(fresh, sr, dtype=torch.float32, device=dev)(x)
+    want = make_city_step(model, sr, dtype=torch.float32, device=dev)(x)
+    same = all(torch.equal(g, w) for g, w in zip(got, want))
+    log(f"[tools] convert --arch height: {os.path.getsize(npz) / 1e6:.1f} MB "
+        f"npz -> {os.path.getsize(out) / 1e6:.1f} MB file; strict load; step "
+        f"outputs equal: {same}; epoch {payload['epoch']}, best_acc "
+        f"{payload['best_acc']}, log_vars {lv}")
+    if not same:
+        raise AssertionError("the converted checkpoint's step differs")
+
+
+def phase_tools(wa, smi, flagship):
+    """Phase 11: each measurement and serving tool's ``main`` once at full
+    width and short length (the bench, ``train_bench`` and
+    ``sr_train_bench`` run in phases 5, 6 and 9; ``flagship`` holds phase
+    5's bench records), their records checked."""
+    from srbh_tpu_torch import entry
+    from srbh_tpu_torch.tools import (
+        composed_bench,
+        conv_microbench,
+        loader_bench,
+        predict_stress,
+        profile_flagship,
+        ref_bench,
+        train_diag,
+    )
+
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    wa.window_attention.launches = 0
+    out = {}
+    rec = run_tool("tools", profile_flagship.main, [
+        "--batch", str(CITY_BATCH), "--dtype", "float32", "--repeats", "3"], smi)[0]
+    for k, v in rec["stages"].items():
+        if not (v["median_ms"] and v["median_ms"] > 0):
+            raise AssertionError(f"profile_flagship {k}: {v}")
+    log(f"[tools] profile_flagship float32 ms: "
+        + ", ".join(f"{k} {v['median_ms']:.3f} ({v['timer']})"
+                    for k, v in rec["stages"].items())
+        + f"; sum of parts {rec['sum_of_parts_ms']:.3f}")
+    bench_f32 = next(r for r in flagship if r["dtype"] == "float32")
+    ratio = bench_f32["value"] / rec["full_tiles_per_sec"]
+    out["bench_float32_vs_profile_full"] = ratio
+    log(f"[tools] bench float32 (phase 5) {bench_f32['value']:.2f} tiles/s, "
+        f"profile_flagship full {rec['full_tiles_per_sec']:.2f}: ratio {ratio:.3f}")
+    if abs(ratio - 1) > BENCH_AGREE:
+        raise AssertionError("the bench and profile_flagship's full stage disagree")
+    rec = run_tool("tools", conv_microbench.main, ["--batch", str(CITY_BATCH)], smi)[0]
+    for k, v in rec["cases"].items():
+        log(f"[tools] conv_microbench {k}: {v['ms_per_conv']:.4f} ms/conv, "
+            f"{v['tflop_per_s']:.2f} TFLOP/s")
+        if not (v["ms_per_conv"] > 0 and math.isfinite(v["tflop_per_s"])):
+            raise AssertionError(f"conv_microbench {k}: {v}")
+    for rec in run_tool("tools", train_diag.main, ["--batch", str(TRAIN_BATCH),
+                                                   "--repeats", "3"], smi):
+        log(f"[tools] train_diag batch {rec['batch']}: sr {rec['sr_fwd_ms']:.2f}, "
+            f"fwd {rec['loss_fwd_ms']:.2f}, step {rec['step_ms']:.2f} ms, "
+            f"allocated {rec['max_memory_allocated_gib']:.2f} GiB, reserved "
+            f"{rec['max_memory_reserved_gib']:.2f} GiB")
+        if not 0 < rec["sr_fwd_ms"] < rec["step_ms"]:
+            raise AssertionError(f"train_diag: {rec}")
+    run_tool("tools", loader_bench.main, ["--tiles", "128", "--epochs", "1",
+                                          "--workers", "0", "4"], smi)
+    recs = run_tool("tools", composed_bench.main, [
+        "--batch", str(TRAIN_BATCH), "--tiles", "64", "--workers", "4",
+        "--epochs", "1"], smi)
+    if not recs[0]["device_equals_device_norm"]:
+        raise AssertionError("composed_bench: device != device_norm batches")
+    recs = run_tool("tools", predict_stress.main, ["--size", str(TOOLS_CITY_SIDE),
+                                                   "--batch", str(CITY_BATCH)], smi)
+    ran = [r["stitcher"] for r in recs if r["metric"] == "stress_predict_wallclock"]
+    eq = recs[-1]
+    if ran != ["device", "host"] or not (eq["build_equal"] and eq["height_equal"]):
+        raise AssertionError(f"predict_stress: stitchers {ran}, {eq}")
+    dev_rec = recs[1]  # the city path's device time (phase 7 profiles none)
+    if dev_rec["idle_share"] is None:
+        raise AssertionError("predict_stress: the profiler saw no device time")
+    out["city_idle_share"] = dev_rec["idle_share"]
+    log(f"[tools] predict_city, device stitch, {TOOLS_CITY_SIDE}x{TOOLS_CITY_SIDE} "
+        f"city, batch {CITY_BATCH}, bfloat16, under the profiler: device busy "
+        f"{dev_rec['busy_ms']:.1f} ms, idle share {dev_rec['idle_share']:.3f}")
+    for ms, key in dev_rec["kernels"][:6]:
+        log(f"[tools]   {ms:9.3f} ms {100 * ms / dev_rec['busy_ms']:5.1f}%  {key[:90]}")
+    rec = run_tool("tools", ref_bench.main, ["--repeats", "3"], smi)[0]
+    check_convs_seen(rec)
+    model, sr, _ = entry.flagship(device="cuda", seed=0)
+    with tempfile.TemporaryDirectory() as root:
+        out.update(tools_export(root, model, sr, smi))
+        tools_convert(root, model, sr)
+    del model, sr
+    torch.cuda.empty_cache()
+    out["launches"] = wa.window_attention.launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[tools] phase {out['phase_s']:.1f} s; window_attention launches: "
+        f"{out['launches']}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2379,7 +2559,7 @@ def main() -> int:
     phase_build(wa)
     rows = phase_kernel(wa, shift_attn_mask, timing)
     launches, swin_diff, swin_times, profiled_ms = phase_swinir(wa, swinir_harness)
-    phase_flagship(entry, make_city_step)
+    flagship = phase_flagship(entry, make_city_step, smi)
     train = phase_train(wa, smi)
     log(f"[train] summary {json.dumps(train)}")
     city = phase_city(wa, entry, smi)
@@ -2388,6 +2568,8 @@ def main() -> int:
     log(f"[entry] summary {json.dumps(entry_points)}")
     long_tail = phase_long_tail(wa, smi)
     log(f"[long_tail] summary {json.dumps(long_tail)}")
+    tools = phase_tools(wa, smi, flagship)
+    log(f"[tools] summary {json.dumps(tools)}")
     gan = phase_gan(wa, smi)
     log(f"[gan] summary {json.dumps(gan)}")
 
@@ -2408,6 +2590,7 @@ def main() -> int:
                              "nosuper": entry_points["nosuper_launches"],
                              "swinir_harness_main": entry_points["harness_launches"],
                              "long_tail": long_tail["launches"],
+                             "tools": tools["launches"],
                              "gan": gan["launches"]},
         "max_abs_err": max(r["max_abs_err"] for n, r in rows.items()
                            if "bf16" not in n),

@@ -611,3 +611,203 @@ def siglip_visual_state_dict(variables: Mapping, layers: int = 27) -> StateDict:
         _dense(sd, f"attn_pool.{name}", p[jax_name])
     _norm(sd, "attn_pool.norm", p["pool_norm"])
     return sd
+
+
+def save_tree_npz(path: str, tree: Mapping) -> None:
+    """A nested tree of arrays as the JAX package's flat ``.npz``
+    (``srbh_tpu.train.convert.save_tree_npz``'s format: keys joined with
+    ``\x1f``, and its marker key), which :func:`load_tree_npz` and the JAX
+    package read."""
+    flat = {}
+
+    def walk(node, path):
+        for k, v in node.items():
+            if isinstance(v, Mapping):
+                walk(v, path + (k,))
+            else:
+                flat[_NPZ_SEP.join(path + (k,))] = np.asarray(v)
+
+    walk(tree, ())
+    flat[_NPZ_MARKER] = np.zeros(0, np.uint8)
+    np.savez(path, **flat)
+
+
+def _jax_conv(sd: Mapping, name: str) -> dict:
+    out = {"kernel": np.asarray(sd[f"{name}.weight"]).transpose(2, 3, 1, 0)}
+    if f"{name}.bias" in sd:
+        out["bias"] = np.asarray(sd[f"{name}.bias"])
+    return out
+
+
+def _jax_bn(sd: Mapping, name: str):
+    return ({"scale": np.asarray(sd[f"{name}.weight"]),
+             "bias": np.asarray(sd[f"{name}.bias"])},
+            {"mean": np.asarray(sd[f"{name}.running_mean"]),
+             "var": np.asarray(sd[f"{name}.running_var"])})
+
+
+def _jax_basic_block(sd: Mapping, prefix: str):
+    p = {c: _jax_conv(sd, f"{prefix}.{c}") for c in ("conv1", "conv2")}
+    s = {}
+    for b in ("bn1", "bn2"):
+        p[b], s[b] = _jax_bn(sd, f"{prefix}.{b}")
+    if f"{prefix}.downsample.0.weight" in sd:
+        p["down_conv"] = _jax_conv(sd, f"{prefix}.downsample.0")
+        p["down_bn"], s["down_bn"] = _jax_bn(sd, f"{prefix}.downsample.1")
+    return p, s
+
+
+def height_model_variables(sd: Mapping, isaggre: bool = True,
+                           encoder_name: str = "efficientnet-b4") -> dict:
+    """The JAX package's variables of ``SRRegressClsFeature`` from the
+    port's (the reference's) state dict: the port's copy of
+    ``srbh_tpu.train.convert.convert_height_model``, so the port can write
+    the npz that :func:`main` reads back."""
+    sd = {k: v.detach().cpu().numpy() if hasattr(v, "detach") else v
+          for k, v in sd.items()}
+    params: dict = {"encoder": {"stem_conv": _jax_conv(sd, "encoder._conv_stem")}}
+    stats: dict = {"encoder": {}}
+    ep, es = params["encoder"], stats["encoder"]
+    ep["stem_bn"], es["stem_bn"] = _jax_bn(sd, "encoder._bn0")
+    for tn, (name, expands) in enumerate(_encoder_blocks(encoder_name)):
+        t, bp, bs = f"encoder._blocks.{tn}", {}, {}
+        if expands:
+            bp["expand_conv"] = _jax_conv(sd, f"{t}._expand_conv")
+            bp["expand_bn"], bs["expand_bn"] = _jax_bn(sd, f"{t}._bn0")
+        bp["dw_conv"] = _jax_conv(sd, f"{t}._depthwise_conv")
+        bp["dw_bn"], bs["dw_bn"] = _jax_bn(sd, f"{t}._bn1")
+        for c in ("se_reduce", "se_expand", "project_conv"):
+            bp[c] = _jax_conv(sd, f"{t}._{c}")
+        bp["project_bn"], bs["project_bn"] = _jax_bn(sd, f"{t}._bn2")
+        ep[name], es[name] = bp, bs
+    for dname in ("decoder1", "decoder2"):
+        params[dname], stats[dname] = {}, {}
+        bi = 0
+        while f"{dname}.blocks.{bi}.conv1.0.weight" in sd:
+            bp, bs = {}, {}
+            for c in ("conv1", "conv2"):
+                base = f"{dname}.blocks.{bi}.{c}"
+                bp[c] = {"conv": _jax_conv(sd, f"{base}.0")}
+                bp[c]["bn"], bn_s = _jax_bn(sd, f"{base}.1")
+                bs[c] = {"bn": bn_s}
+            params[dname][f"block{bi}"], stats[dname][f"block{bi}"] = bp, bs
+            bi += 1
+    params["hrfeat"], stats["hrfeat"] = {}, {}
+    for i in range(3):
+        params["hrfeat"][f"block{i}"], stats["hrfeat"][f"block{i}"] = \
+            _jax_basic_block(sd, f"hrfeat.{i}")
+    for head in ("reg", "seg"):
+        k, ups = 0, {}
+        while f"{head}.upsampler.{2 * k}.weight" in sd:
+            ups[f"conv_{k}"] = _jax_conv(sd, f"{head}.upsampler.{2 * k}")
+            k += 1
+        params[head], stats[head] = {"upsampler": ups}, {}
+        for i in range(3):
+            params[head][f"fuse{i}"], stats[head][f"fuse{i}"] = \
+                _jax_basic_block(sd, f"{head}.fuse.{i}")
+        params[head]["conv_last"] = _jax_conv(sd, f"{head}.conv_last")
+    if isaggre and "aggre_height.weight" in sd:
+        params["aggre_height"] = _jax_conv(sd, "aggre_height")
+    return {"params": params, "batch_stats": stats}
+
+
+ARCHS = ("height", "nosuper", "rrdbnet", "rrdbnet-simple", "edsr", "espcn",
+         "swinir", "unet-sn", "imagenet-encoder", "sr-regress", "vgg19",
+         "lpips", "clip", "siglip")
+
+
+def _count(params: Mapping, prefix: str) -> int:
+    """How many ``{prefix}{i}`` subtrees ``params`` holds."""
+    return len([k for k in params if k.startswith(prefix) and k[len(prefix):].isdigit()])
+
+
+def _variables(tree: Mapping, key: Optional[str]) -> dict:
+    """The variables tree to convert: ``tree[key]`` if ``key`` is given
+    (e.g. a GAN checkpoint's ``params_ema``), and a bare params tree
+    wrapped as ``{"params": ...}``."""
+    tree = tree[key] if key else tree
+    return dict(tree) if "params" in tree else {"params": tree}
+
+
+def height_checkpoint(tree: Mapping, sd: StateDict) -> dict:
+    """The reference's checkpoint dict (train.py:199-212): ``epoch``,
+    ``state_dict``, ``log_vars`` (a list of one-element tensors, the
+    adaptive losses' weights) and ``best_acc``, from a JAX height npz's
+    ``log_vars/`` (``{"w1": ...}`` scalars or an array) and ``meta/``."""
+    lv = tree.get("log_vars")
+    if isinstance(lv, Mapping):
+        lv = [lv[k] for k in sorted(lv, key=lambda s: int(s[1:]))]
+    meta = tree.get("meta", {})
+    return {"epoch": int(np.asarray(meta.get("epoch", 0))),
+            "state_dict": sd,
+            "log_vars": [] if lv is None else [_t(np.reshape(v, (1,))) for v in lv],
+            "best_acc": float(np.asarray(meta.get("best_acc", float("inf"))))}
+
+
+def main(argv=None) -> str:
+    """CLI: a JAX ``.npz`` (``srbh_tpu.train.convert.save_tree_npz``'s format)
+    -> a torch file that the port's modules load with ``load_state_dict``.
+
+        python -m srbh_tpu_torch.convert height.npz checkpoint20 --arch height
+        python -m srbh_tpu_torch.convert sr.npz sr.pth --arch rrdbnet \\
+            --key params_ema
+
+    The inverse of ``python -m srbh_tpu.train.convert``. ``--arch height``
+    (and ``nosuper``) writes the reference's checkpoint dict ``{'epoch',
+    'state_dict', 'log_vars', 'best_acc'}``, which ``trainer.main_test``
+    reads and names its acc files by; every other arch writes the state dict
+    alone. Block and layer counts are read from the npz."""
+    import argparse
+
+    ap = argparse.ArgumentParser(prog="python -m srbh_tpu_torch.convert",
+                                 description=main.__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("input", help="JAX .npz of a variables tree")
+    ap.add_argument("output", help="output torch file")
+    ap.add_argument("--arch", required=True, choices=ARCHS)
+    ap.add_argument("--key", default=None,
+                    help="subtree to convert (e.g. params_ema of a GAN npz)")
+    ap.add_argument("--no-aggre", action="store_true",
+                    help="height / nosuper: model without the aggre_height conv")
+    ap.add_argument("--upsampler", default="pixelshuffle", help="SwinIR head mode")
+    ap.add_argument("--encoder-name", default="efficientnet-b4")
+    args = ap.parse_args(argv)
+
+    if args.arch == "imagenet-encoder":
+        out = encoder_state_dict_from_npz(args.input, args.encoder_name)
+    else:
+        tree = load_tree_npz(args.input)
+        v = _variables(tree, args.key)
+        p = v["params"]
+        if args.arch in ("height", "nosuper"):
+            to_sd = MODEL_STATE_DICTS["feature" if args.arch == "height" else "nosuper"]
+            out = height_checkpoint(tree, to_sd(v, args.encoder_name,
+                                                not args.no_aggre))
+        elif args.arch in ("rrdbnet", "rrdbnet-simple"):
+            to_sd = (rrdbnet_state_dict if args.arch == "rrdbnet"
+                     else rrdbnet_simple_state_dict)
+            out = to_sd(v, _count(p, "body_"))
+        elif args.arch == "swinir":
+            depths = [_count(p[f"layer{i}"], "block")
+                      for i in range(_count(p, "layer"))]
+            out = swinir_state_dict(v, depths, args.upsampler)
+        elif args.arch in ("clip", "siglip"):
+            to_sd = (clip_visual_state_dict if args.arch == "clip"
+                     else siglip_visual_state_dict)
+            out = to_sd(v, _count(p, "resblock_"))
+        elif args.arch == "sr-regress":
+            out = sr_regress_state_dict(v, args.encoder_name)
+        else:
+            out = {"edsr": edsr_state_dict, "espcn": espcn_state_dict,
+                   "unet-sn": unet_discriminator_sn_state_dict,
+                   "vgg19": vgg19_state_dict,
+                   "lpips": lpips_state_dict}[args.arch](v)
+    torch.save(out, args.output)
+    print(f"wrote {args.output} ({args.arch})")
+    return args.output
+
+
+if __name__ == "__main__":
+    import sys
+
+    main(sys.argv[1:])

@@ -11,7 +11,9 @@ processes load the samples. With ``device_put`` the batches are collated
 into pinned host tensors when ``device`` (``None`` is the card) is a card,
 and copied to it with ``non_blocking=True``, but for ``path`` and the keys
 named in ``host_keys``, which stay on the host. A worker's exception is
-raised again in the consumer.
+raised again in the consumer, and an epoch that ends short of ``len(loader)``
+batches raises: torch's loader ends an epoch without a word where a
+sample's ``__getitem__`` raises ``StopIteration``.
 """
 from __future__ import annotations
 
@@ -66,9 +68,14 @@ class DataLoader:
         if hasattr(self.dataset, "set_epoch"):
             self.dataset.set_epoch(self.epoch)
         self.epoch += 1
+        n = 0
         for batch in self._loader:
             if self.device is not None:
                 batch = {k: v if k in self.host_keys else
                          v.to(self.device, non_blocking=True)
                          for k, v in batch.items()}
+            n += 1
             yield batch
+        if n != len(self):
+            raise RuntimeError(f"epoch {self.epoch - 1} ended after {n} of "
+                               f"{len(self)} batches")

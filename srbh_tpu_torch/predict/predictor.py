@@ -34,43 +34,59 @@ from srbh_tpu_torch.predict.writers import array2raster, array2raster_rio
 CPU_CANVAS_BUDGET = 6 * 2**30
 
 
+def serving_outputs(model, sr_model, x, rgb_idx=(0, 1, 2),
+                    dtype=torch.bfloat16):
+    """The flagship's serving forward on an NCHW float batch ``x`` (B, 8,
+    64, 64): the frozen SR features, the height model, then the predictor's
+    post-processing (predict/predictor.py:50-56). Returns float heights
+    ``clamp(h, 0)`` (B, 256, 256) and build softmax (B, 256, 256, C), and
+    their quantised forms: uint16 decimetres ``round(h * 10)`` and uint8
+    ``round(softmax * 255)``. ``torch.round`` rounds half to even, like
+    ``jnp.round``; the float -> uint16 cast is direct (torch supports it on
+    CUDA and on the CPU). For a ``dtype`` other than float32 both models run
+    under ``torch.autocast`` on ``x``'s device (weights stay float32, as the
+    JAX package's ``dtype`` keeps its params float32); the post-processing
+    is float32."""
+    with compute_type(x.device, dtype):
+        fea = sr_model(x[:, list(rgb_idx)], features_only=True)
+        outs = model(x, fea)
+    return postprocess(outs[0], outs[1])
+
+
+def compute_type(device, dtype):
+    """float32 as it is, or ``torch.autocast`` in ``dtype`` on ``device``."""
+    if dtype == torch.float32:
+        return contextlib.nullcontext()
+    return torch.autocast(torch.device(device).type, dtype=dtype)
+
+
+def postprocess(height, build):
+    """The model's NCHW height (B, 1, H, W) and build logits (B, C, H, W) ->
+    the four outputs of :func:`serving_outputs`, in float32."""
+    height = height[:, 0].float().clamp(min=0)
+    build = torch.softmax(build.float(), dim=1)
+    h = torch.round(height * 10).to(torch.uint16)
+    b = torch.round(build * 255).to(torch.uint8)
+    return (height, build.permute(0, 2, 3, 1), h,
+            b.permute(0, 2, 3, 1).contiguous())
+
+
 def make_city_step(model, sr_model, rgb_idx=(0, 1, 2), dtype=torch.bfloat16,
                    device=None):
     """Batch step: NHWC image (B, 64, 64, 8) -> (uint16 height in decimetres
-    (B, 256, 256), uint8 build softmax x 255 (B, 256, 256, C)).
-
-    ``dtype`` is the compute type: for anything but float32 the two models
-    run under ``torch.autocast`` in that type (weights stay float32, as the
-    JAX package's ``dtype`` keeps its params float32); the post-processing is
-    float32. Both models move to ``device`` (``None`` is the card) in eval
-    mode, and the step runs under ``torch.inference_mode()``. Outputs stay on
-    the device.
-
-    Post-processing as predict/predictor.py:50-56: heights
-    ``round(clamp(h, 0) * 10)`` and build maps ``round(softmax * 255)``;
-    ``torch.round`` rounds half to even, like ``jnp.round``. The float ->
-    uint16 cast is direct (torch supports it on CUDA and on the CPU).
-    """
+    (B, 256, 256), uint8 build softmax x 255 (B, 256, 256, C)), the
+    quantised outputs of :func:`serving_outputs` in compute type ``dtype``.
+    Both models move to ``device`` (``None`` is the card) in eval mode, and
+    the step runs under ``torch.inference_mode()``. Outputs stay on the
+    device."""
     dev = resolve_device(device)
     model = model.eval().to(dev)
     sr_model = sr_model.eval().to(dev)
-    rgb = list(rgb_idx)
-
-    def compute():
-        if dtype == torch.float32:
-            return contextlib.nullcontext()
-        return torch.autocast(dev.type, dtype=dtype)
 
     def step(image):
         x = torch.as_tensor(image, device=dev).permute(0, 3, 1, 2).float()
         with torch.inference_mode():
-            with compute():
-                fea = sr_model(x[:, rgb], features_only=True)
-                outs = model(x, fea)
-            height, build = outs[0].float(), outs[1].float()
-            h = torch.round(height[:, 0].clamp(min=0) * 10).to(torch.uint16)
-            b = torch.round(torch.softmax(build, dim=1) * 255).to(torch.uint8)
-            return h, b.permute(0, 2, 3, 1).contiguous()
+            return serving_outputs(model, sr_model, x, rgb_idx, dtype)[2:]
 
     return step
 

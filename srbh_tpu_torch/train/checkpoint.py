@@ -12,7 +12,8 @@ place, synchronously.
 :func:`load_checkpoint` also reads the JAX package's ``.npz`` checkpoints
 (``srbh_tpu.train.convert.save_tree_npz``, read by
 ``convert.load_tree_npz``) through ``convert.train_state_from_jax``, of the
-height model or of the nosuper ablation.
+height model or of the nosuper ablation, and the reference's own checkpoint
+dict (``epoch``, ``state_dict``, ``log_vars``, ``best_acc``).
 
 The Real-ESRGAN trainer's checkpoints (``srbh_tpu/train/sr_driver.py:32-44``)
 are two ``torch.save`` files in its log directory with BasicSR's keys:
@@ -104,7 +105,24 @@ def load_checkpoint(path: str, encoder_name: str = "efficientnet-b4",
         return None
     if path.endswith(".npz"):
         return _payload_from_npz(path, encoder_name, isaggre, model_variant)
-    return torch.load(path, map_location="cpu", weights_only=True)
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    if "state_dict" in payload and "model" not in payload:
+        return _payload_from_reference(payload)
+    return payload
+
+
+def _payload_from_reference(payload: dict) -> dict:
+    """The reference's checkpoint dict (train.py:199-212: ``epoch``,
+    ``state_dict``, ``log_vars`` as a list of one-element tensors,
+    ``best_acc``; ``python -m srbh_tpu_torch.convert --arch height`` writes
+    one) as a payload of :func:`save_checkpoint`'s form without
+    ``optimizer``."""
+    lv = payload.get("log_vars")
+    return {"epoch": int(payload.get("epoch", 0)),
+            "best_rmse": float(payload.get("best_acc", float("inf"))),
+            "step": 0, "model": payload["state_dict"],
+            "log_vars": (torch.cat([torch.as_tensor(v).reshape(-1) for v in lv])
+                         if lv else None)}
 
 
 def restore_into_state(state, payload: dict) -> None:

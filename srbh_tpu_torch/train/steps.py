@@ -73,10 +73,13 @@ def step_seed(seed: int, step: int, *tag: int) -> int:
 
 def _augment(b, dev, seed, step, norm, lut, cw, isaggre, ishir):
     """The batch the model trains on, from a device-aug batch: normalise the
-    raw DNs (``norm``), augment, clip to [0, 1] (``norm``: the host clips
-    after augmenting), then build the targets."""
+    raw DNs (``norm``; in float64, rounded to float32, as the host pipeline
+    does, so the batch is bit-equal to a host-normalised one), augment, clip
+    to [0, 1] (``norm``: the host clips after augmenting), then build the
+    targets."""
     if norm is not None:
-        image = torch.cat([(b[k].float() - norm[f"{k}_off"]) / norm[f"{k}_scale"]
+        image = torch.cat([((b[k].double() - norm[f"{k}_off"])
+                            / norm[f"{k}_scale"]).float()
                            for k in ("s2", "s1")], -1)
     else:
         image = b["image"].float()
@@ -118,6 +121,9 @@ def make_train_step(model, sr_model, rgb_idx=(0, 1, 2), isaggre: bool = True,
     (which needs ``device_aug``), a dict of the dataset's ``s2_off``,
     ``s2_scale``, ``s1_off`` and ``s1_scale``, normalises raw ``s2`` / ``s1``
     in the step before augmenting and clips to [0, 1] after.
+
+    ``step.forward_loss(state, batch) -> (loss, rmse)`` is the step's
+    forward alone (``tools/train_diag.py`` times it under ``no_grad``).
     """
     if norm is not None and not device_aug:
         raise ValueError("norm (in-step normalisation) requires device_aug")
@@ -141,10 +147,12 @@ def make_train_step(model, sr_model, rgb_idx=(0, 1, 2), isaggre: bool = True,
         lut = torch.as_tensor(build_hierarchy_lut(hir).astype(np.int64), device=dev)
         cw = torch.as_tensor(np.asarray(class_weight, np.float32), device=dev)
         if norm is not None:
-            norm = {k: torch.as_tensor(np.asarray(v, np.float32), device=dev)
+            # float64, as the host pipeline normalises: the batch is then
+            # bit-equal to the host-normalised one
+            norm = {k: torch.as_tensor(np.asarray(v, np.float64), device=dev)
                     for k, v in norm.items()}
 
-    def step(state, batch, lr):
+    def forward_loss(state, batch):
         b = _to_device(batch, keys, dev)
         if device_aug:
             b = _augment(b, dev, seed, state.step, norm, lut, cw, isaggre, ishir)
@@ -169,11 +177,16 @@ def make_train_step(model, sr_model, rgb_idx=(0, 1, 2), isaggre: bool = True,
             loss = (mse_adapt(height, height_t, lv[0])
                     + ce_dice_adapt(build, b["build"], lv[1]))
         rmse = torch.sqrt(torch.mean((height.detach() - height_t) ** 2))
+        return loss, rmse
+
+    def step(state, batch, lr):
+        loss, rmse = forward_loss(state, batch)
         loss.backward()
         state.apply_gradients(lr)
         return {"loss": loss.detach(), "rmse": rmse,
                 "log_vars": state.log_vars.detach().clone()}
 
+    step.forward_loss = forward_loss
     return step
 
 

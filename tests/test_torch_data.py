@@ -304,3 +304,15 @@ def test_loader_raises_a_worker_error():
 
     with pytest.raises(OSError, match="tile 6"):
         list(DataLoader(Broken(12), batch_size=4, num_workers=2))
+
+
+@pytest.mark.parametrize("workers", [0, 2])
+def test_loader_raises_on_a_short_epoch(workers):
+    class Stops(_Indices):
+        def __getitem__(self, i):
+            if i == 21:  # torch's loader ends the epoch here without a word
+                raise StopIteration
+            return super().__getitem__(i)
+
+    with pytest.raises(RuntimeError, match="ended after 5 of 10 batches"):
+        list(DataLoader(Stops(40), batch_size=4, num_workers=workers))

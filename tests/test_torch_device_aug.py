@@ -284,11 +284,12 @@ def test_device_aug_step_equals_plain_step_on_jax_targets(tiles, norm):
     fea = FixedFeature(4, 128)
     seed, lr = 3, 1e-3
 
-    # the step's own draws, its normalisation and clip, then JAX's targets
+    # the step's own draws, its normalisation (float64, as the host's) and
+    # clip, then JAX's targets
     if norm:
         image = np.concatenate(
-            [(batch[k].astype(np.float32) - np.float32(stats[f"{k}_off"]))
-             / np.float32(stats[f"{k}_scale"]) for k in ("s2", "s1")], -1)
+            [(batch[k].astype(np.float64) - stats[f"{k}_off"])
+             / stats[f"{k}_scale"] for k in ("s2", "s1")], -1)
         image = image.astype(np.float32)
     else:
         image = batch["image"]

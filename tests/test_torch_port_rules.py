@@ -62,7 +62,13 @@ def test_port_has_the_slice_modules():
                  "models.lpips", "models.clip", "ops.ssim",
                  "losses.ssim_loss", "losses.segmentation", "metrics.learned",
                  "train.optimizers", "utils.eval_seg", "utils.ramps",
-                 "utils.cam", "utils.profiler"):
+                 "utils.cam", "utils.profiler", "bench", "tools.timing",
+                 "tools._trace", "tools.profile_flagship",
+                 "tools.conv_microbench", "tools.train_bench",
+                 "tools.train_diag", "tools.sr_train_bench",
+                 "tools.loader_bench", "tools.composed_bench",
+                 "tools.predict_stress", "tools.ref_bench",
+                 "tools.export_model"):
         assert f"srbh_tpu_torch.{name}" in mods
 
 
