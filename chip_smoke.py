@@ -6,7 +6,7 @@
 Runs from the root of the repository on a machine with one NVIDIA H100 and
 the CUDA toolkit (``nvcc``). It builds the Hopper window-attention kernel
 from ``srbh_tpu_torch/csrc/``, then drives the port's two serving paths, its
-two training paths and its two test entry points:
+two training paths, its two test entry points and its preparation tools:
 
 1. the card: name, count, ``nvidia-smi`` name and power limit;
 2. the kernel build, with ``-Xptxas -v`` (registers, shared memory, spills;
@@ -144,7 +144,30 @@ two training paths and its two test entry points:
    form, the file loaded with ``strict=True`` giving the same step output.
    The bench, ``train_bench`` and ``sr_train_bench`` run in phases 5, 6 and
    9, in place of those phases' own timing loops, so that no rate is timed
-   twice. The hand kernel's launches over the phase (none).
+   twice. The hand kernel's launches over the phase (none);
+12. the preparation path, run after phase 11 and before the GAN: a raw
+   city (S2 6-band uint16 in PackBits and S1 2-band float32, 512 x 512
+   source pixels at 10 m in EPSG:32650; two WSF tiles in EPSG:4326; 400
+   footprints with a floors field, courtyard holes, two-part records and
+   records across the raster's edge) prepared with the port alone: the WSF
+   tiles mosaicked (``preprocess.mosaic_rasters``), warped to EPSG:32650
+   (``products.warp_raster``) and clipped to the S2 extent
+   (``main_gen_mask``); the 64/56 fishnet with its ``.prj`` parsed back
+   to 32650 and its WSF validity; the footprints burnt at 2.5 m
+   (``shp2tif``, ``floor_field_to_height``) as the reference heights; 64
+   training tiles, ``generate_allfile`` and ``split_data`` (the splits
+   equal to ``RandomState(1).permutation``), ``main_stats`` and
+   ``height_histogram`` (equal to a float64 recomputation within 1e-12,
+   read back by ``load_stats_table``); then the city CLI at full width on
+   the card (bfloat16, batch 16) over the prepared city, and its heights
+   scored against the reference (``compare_height_products``,
+   ``compare_grid_products``, ``count_valid_samples``: finite numbers,
+   well-formed CSVs). The native codec against its plain versions byte for
+   byte: PackBits on the S2 raster (MB/s of each), and the C++
+   ``add_batch`` against numpy's at phase 7's tile shapes (batch 16 of
+   256 x 256, 7 classes) on a 4096^2 canvas, first touch and warm (ms per
+   ``add_batch`` and MB/s of each). The hand kernel's launches over the
+   phase (none).
 
 TF32 is off for the whole run (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32`` are False), so float32 means
@@ -2542,6 +2565,402 @@ def phase_tools(wa, smi, flagship):
     return out
 
 
+# phase 12: the preparation path on the card's machine. A raw city of
+# PREP_SIDE x PREP_SIDE source pixels at 10 m in EPSG:32650 (5.12 km: a
+# district, a quarter of phase 7's side, so that the phase stays within a
+# minute), two WSF tiles in EPSG:4326, PREP_BUILDINGS footprints (some with a
+# courtyard hole, some of two parts, some crossing the raster's edge), and
+# PREP_TILES training tiles cut from it (an 8 x 8 grid of 64 x 64); the stats
+# tables held to a float64 recomputation within PREP_STATS_TOL (relative).
+# The host blend is timed at phase 7's tile shapes (batch 16 of 256 x 256, 7
+# classes) on a BLEND_CANVAS^2 canvas, BLEND_REPEATS batches each way.
+PREP_SIDE, PREP_BUILDINGS, PREP_TILES, PREP_STATS_TOL = 512, 400, 64, 1e-12
+PREP_EPSG, WSF_EPSG, WSF_RES = 32650, 4326, 1e-4
+BLEND_BATCH, BLEND_CANVAS, BLEND_REPEATS = 16, 4096, 6
+
+
+def _rectangle(cx, cy, w, h, angle, clockwise=True):
+    """A closed rectangular ring about (cx, cy), rotated by ``angle``."""
+    c, s = math.cos(angle), math.sin(angle)
+    corners = [(-w / 2, h / 2), (w / 2, h / 2), (w / 2, -h / 2), (-w / 2, -h / 2)]
+    if not clockwise:
+        corners = corners[::-1]
+    ring = [(cx + x * c - y * s, cy + x * s + y * c) for x, y in corners]
+    return np.array(ring + ring[:1], float)
+
+
+def write_raw_city(citydir, raw, city, rng):
+    """Phase 12's raw inputs: S2 (6-band uint16, PackBits) and S1 (2-band
+    float32) of ``city`` in ``citydir``, two WSF tiles in EPSG:4326 and a
+    footprint shapefile with a floors field in ``raw``. Returns the S2
+    array, the S1 array, the WSF tile paths and the footprint path."""
+    from srbh_tpu_torch.data import crs
+    from srbh_tpu_torch.data.shapefile import ShapeRecord, write_shapefile
+    from srbh_tpu_torch.data.tiff import write_tiff
+
+    side = PREP_SIDE
+    keys = crs.geokeys_for_epsg(PREP_EPSG)
+    gt = (500000.0, 10.0, 0.0, 4649776.0, 0.0, -10.0)
+    s2 = rng.integers(0, 5000, (side, side, 6), dtype=np.uint16)
+    s1 = rng.uniform(-25, 5, (side, side, 2)).astype(np.float32)
+    write_tiff(os.path.join(citydir, f"{city}_s2.tif"), s2, gt,
+               compress="PACKBITS", geo_keys=keys)
+    write_tiff(os.path.join(citydir, f"{city}_s1.tif"), s1, gt, geo_keys=keys)
+    bounds = (gt[0], gt[3] - 10.0 * side, gt[0] + 10.0 * side, gt[3])
+    lon0, lat0, lon1, lat1 = crs.transform_bounds(PREP_EPSG, WSF_EPSG, bounds)
+    x0 = math.floor(lon0 / WSF_RES - 20) * WSF_RES
+    y0 = math.ceil(lat1 / WSF_RES + 20) * WSF_RES
+    w = int(math.ceil((lon1 - x0) / WSF_RES)) + 20
+    h = int(math.ceil((y0 - lat0) / WSF_RES)) + 20
+    lon = x0 + (np.arange(w) + 0.5) * WSF_RES
+    lat = y0 - (np.arange(h) + 0.5) * WSF_RES
+    mx, my = (lon0 + lon1) / 2, (lat0 + lat1) / 2
+    rx, ry = (lon1 - lon0) / 2.5, (lat1 - lat0) / 2.5
+    built = ((lon[None] - mx) / rx) ** 2 + ((lat[:, None] - my) / ry) ** 2 <= 1
+    # speckle, too sparse to make a cell valid on its own
+    built |= rng.random((h, w)) < 0.002
+    wsf = built.astype(np.uint8) * 255
+    tiles, mid = [], w // 2
+    for name, a, b in (("west", 0, mid + 10), ("east", mid - 10, w)):
+        path = os.path.join(raw, f"wsf_{name}.tif")
+        write_tiff(path, wsf[:, a:b], (x0 + a * WSF_RES, WSF_RES, 0.0, y0, 0.0,
+                                       -WSF_RES),
+                   geo_keys=crs.geokeys_for_epsg(WSF_EPSG))
+        tiles.append(path)
+    records = []
+    for i in range(PREP_BUILDINGS):
+        cx = rng.uniform(bounds[0] - 30, bounds[2] + 30)
+        cy = rng.uniform(bounds[1] - 30, bounds[3] + 30)
+        bw, bh = rng.uniform(8, 60, 2)
+        angle = rng.uniform(0, math.pi)
+        rings = [_rectangle(cx, cy, bw, bh, angle)]
+        if i % 10 == 0 and min(bw, bh) > 24:  # a courtyard
+            rings.append(_rectangle(cx, cy, bw / 2, bh / 2, angle, False))
+        if i % 10 == 1:  # a second part along the first's long axis
+            d = bw + 12.0
+            rings.append(_rectangle(cx + d * math.cos(angle),
+                                    cy + d * math.sin(angle), bw, bh, angle))
+        pts = np.concatenate(rings)
+        records.append(ShapeRecord(
+            (pts[:, 0].min(), pts[:, 1].min(), pts[:, 0].max(), pts[:, 1].max()),
+            {"floors": int(rng.integers(1, 31))}, rings=rings))
+    footprints = os.path.join(raw, "footprints.shp")
+    write_shapefile(footprints, records, [("floors", "N", 10, 0)],
+                    prj_wkt=crs.wkt_for_epsg(PREP_EPSG))
+    return s2, s1, tiles, footprints
+
+
+def _tile_stats(arrays):
+    """The float64 per-band tables of a list of (H, W, C) tiles, computed
+    here as stats_dataset_globe.py defines them: per tile min, max, mean and
+    std; the mean of means, sqrt(E[std^2 + mean^2] - mean^2), and the 2 %
+    / 98 % percentiles of the tiles' minima / maxima."""
+    a = np.stack([t.astype(np.float64) for t in arrays])  # (n, H, W, C)
+    mins, maxs = a.min((1, 2)), a.max((1, 2))
+    means, stds = a.mean((1, 2)), a.std((1, 2))
+    mean_all = means.mean(0)
+    std_all = np.sqrt((stds * stds + means * means).mean(0) - mean_all ** 2)
+    return (np.stack([mean_all, std_all]),
+            np.stack([np.percentile(mins, 2, axis=0),
+                      np.percentile(maxs, 98, axis=0)]))
+
+
+def _close(label, got, want, tol):
+    err = float(np.max(np.abs(got - want) / np.maximum(1.0, np.abs(want))))
+    if not err <= tol:
+        raise AssertionError(f"{label}: relative error {err:.3e} > {tol:.0e}")
+    return err
+
+
+def prepare_tiles(root, city, s2, s1, heights_dm, timed):
+    """Step 6 and 7: PREP_TILES tiles (S2, S1, uint8 heights in metres)
+    under ``root``, ``generate_allfile`` and ``split_data`` (held to
+    ``RandomState(1).permutation``), then ``main_stats`` and
+    ``height_histogram`` into ``root/stats`` (held to a float64
+    recomputation and read back by ``load_stats_table``). Returns the
+    stats directory."""
+    from srbh_tpu_torch.data import datalist, stats
+    from srbh_tpu_torch.data.tiff import write_tiff
+    from srbh_tpu_torch.ops.normalize import load_stats_table
+
+    n_side = int(math.isqrt(PREP_TILES))
+    step = PREP_SIDE // n_side
+    for d in ("s2x", "s1x", "bhx"):
+        os.makedirs(os.path.join(root, d))
+    names, parts = [], {"s2x": [], "s1x": [], "bhx": []}
+    for r in range(n_side):
+        for c in range(n_side):
+            name = f"{city}_{r}_{c}.tif"
+            names.append(name)
+            win = np.s_[r * step: r * step + 64, c * step: c * step + 64]
+            hwin = np.s_[4 * r * step: 4 * (r * step + 64),
+                         4 * c * step: 4 * (c * step + 64)]
+            tiles = {"s2x": s2[win], "s1x": s1[win],
+                     "bhx": np.minimum(heights_dm[hwin] // 10, 255
+                                       ).astype(np.uint8)}
+            for d, arr in tiles.items():
+                write_tiff(os.path.join(root, d, name), arr)
+                parts[d].append(arr if arr.ndim == 3 else arr[..., None])
+    t0 = time.perf_counter()
+    listpath = datalist.generate_allfile(root, "s1x", suffix=city)
+    split = datalist.split_data(listpath)
+    timed["datalists_s"] = time.perf_counter() - t0
+    order = sorted(names)
+    perm = np.random.RandomState(1).permutation(len(order))
+    want = {f"datalist_{city}.csv": order}
+    shuffled = [order[i] for i in perm]
+    n07 = int(len(order) * 0.7)
+    want[f"datalist_{city}_train_0.7.csv"] = shuffled[:n07]
+    rest = shuffled[n07:]
+    rest = [rest[i] for i in np.random.RandomState(1).permutation(len(rest))]
+    n03 = int(len(rest) * 0.33)
+    want[f"datalist_{city}_test_0.7_val_0.3.csv"] = rest[:n03]
+    want[f"datalist_{city}_test_0.7_test_0.3.csv"] = rest[n03:]
+    n09 = int(len(order) * 0.9)
+    want[os.path.basename(split[0])] = shuffled[:n09]
+    want[os.path.basename(split[1])] = shuffled[n09:]
+    for listname, rows in want.items():
+        got = [r[0] for r in datalist.read_rows(os.path.join(root, listname))]
+        if got != rows:
+            raise AssertionError(f"{listname}: not the RandomState(1) split")
+    t0 = time.perf_counter()
+    statsdir = os.path.join(root, "stats")
+    for d, nband in (("s2x", 6), ("s1x", 2)):
+        stats.main_stats(root, d, nband, statsdir)
+    hist = stats.height_histogram(os.path.join(root, "bhx"), statsdir,
+                                  f"bh_stats_{city}")
+    timed["stats_s"] = time.perf_counter() - t0
+    err = 0.0
+    for d in ("s2x", "s1x"):
+        meanstd, minmax = _tile_stats(parts[d])
+        for kind, table in (("meanstd", meanstd), ("minmax", minmax)):
+            got = load_stats_table(os.path.join(statsdir, f"{d}_{kind}.txt"))
+            err = max(err, _close(f"{d}_{kind}", got, table, PREP_STATS_TOL))
+    want_hist = np.bincount(np.concatenate([t.ravel() for t in parts["bhx"]]),
+                            minlength=256).astype(np.float64)
+    if not np.array_equal(hist, want_hist) or not np.array_equal(
+            np.loadtxt(os.path.join(statsdir, f"bh_stats_{city}.txt")), want_hist):
+        raise AssertionError("height histogram != its recomputation")
+    jpg = os.path.exists(os.path.join(statsdir, f"bh_stats_{city}_plot.jpg"))
+    timed["stats_max_rel_err"] = err
+    log(f"[prepare] {len(names)} tiles; datalists {timed['datalists_s']:.2f} s "
+        f"(splits equal RandomState(1).permutation); stats tables "
+        f"{timed['stats_s']:.2f} s, largest relative error against float64 "
+        f"{err:.2e} (limit {PREP_STATS_TOL:.0e}); histogram of {int(hist.sum())} "
+        f"pixels equal; plot written: {jpg}")
+    return statsdir
+
+
+def native_vs_plain(s2, smi):
+    """The C++ codec and blender against their plain versions, byte for
+    byte: PackBits on the S2 raster's bytes, and ``add_batch`` against
+    ``add_batch_plain`` at the city CLI's tile shapes; times of each."""
+    from srbh_tpu_torch import native
+    from srbh_tpu_torch.data import tiff
+    from srbh_tpu_torch.predict.stitcher import MosaicAccumulator
+
+    out = {}
+    data = s2.tobytes()
+    mb = len(data) / 1e6
+    t0 = time.perf_counter()
+    enc = native.packbits_encode(data)
+    t1 = time.perf_counter()
+    enc_plain = tiff._packbits_encode(data)
+    t2 = time.perf_counter()
+    dec = native.packbits_decode(enc, len(data))
+    t3 = time.perf_counter()
+    dec_plain = tiff._packbits_decode(enc, len(data))
+    t4 = time.perf_counter()
+    if enc != enc_plain or dec != data or dec_plain != data:
+        raise AssertionError("native PackBits != the Python codec")
+    out["packbits"] = {"mb": mb, "encode_mb_per_s": mb / (t1 - t0),
+                       "encode_plain_mb_per_s": mb / (t2 - t1),
+                       "decode_mb_per_s": mb / (t3 - t2),
+                       "decode_plain_mb_per_s": mb / (t4 - t3)}
+    log(f"[prepare] PackBits on the S2 raster ({mb:.2f} MB, {len(enc) / 1e6:.2f} "
+        f"MB packed), byte-equal: encode {out['packbits']['encode_mb_per_s']:.1f} "
+        f"MB/s native, {out['packbits']['encode_plain_mb_per_s']:.2f} plain; "
+        f"decode {out['packbits']['decode_mb_per_s']:.1f} MB/s native, "
+        f"{out['packbits']['decode_plain_mb_per_s']:.1f} plain; {smi}")
+    rng = np.random.default_rng(12)
+    side = BLEND_CANVAS // 4
+    batches = [(rng.integers(0, 3000, (BLEND_BATCH, 256, 256), dtype=np.uint16),
+                rng.integers(0, 256, (BLEND_BATCH, 256, 256, 7), dtype=np.uint8),
+                np.concatenate([rng.integers(0, side - 64, (BLEND_BATCH, 2)),
+                                np.full((BLEND_BATCH, 2), 64)], 1))
+               for _ in range(BLEND_REPEATS)]
+    tile_bytes = batches[0][0].nbytes + batches[0][1].nbytes
+    acc, plain = MosaicAccumulator(side, side, 7), MosaicAccumulator(side, side, 7)
+    out["blend"] = {}
+    # the first pass writes canvas pages for the first time, as a city's
+    # accumulator does; the second adds the same batches to pages in memory
+    for rnd in ("first_touch", "warm"):
+        t = {"native": 0.0, "plain": 0.0}
+        for h, b, pos in batches:
+            t0 = time.perf_counter()
+            acc.add_batch(h, b, pos)
+            t1 = time.perf_counter()
+            plain.add_batch_plain(h, b, pos)
+            t2 = time.perf_counter()
+            t["native"] += t1 - t0
+            t["plain"] += t2 - t1
+        out["blend"][rnd] = {k: {"ms_per_add_batch": 1e3 * v / BLEND_REPEATS,
+                                 "mb_per_s": tile_bytes * BLEND_REPEATS / 1e6 / v}
+                             for k, v in t.items()}
+        r = out["blend"][rnd]
+        log(f"[prepare] add_batch ({rnd}), batch {BLEND_BATCH} of 256x256 (7 "
+            f"classes, uint8 build tiles, {tile_bytes / 1e6:.1f} MB a batch) on a "
+            f"{BLEND_CANVAS}^2 canvas: C++ {r['native']['ms_per_add_batch']:.2f} "
+            f"ms ({r['native']['mb_per_s']:.0f} MB/s of tiles), numpy "
+            f"{r['plain']['ms_per_add_batch']:.2f} ms ({r['plain']['mb_per_s']:.0f} "
+            f"MB/s); {smi}")
+    equal = all(np.array_equal(getattr(acc, k), getattr(plain, k))
+                for k in ("height_sum", "build_sum", "weight"))
+    del acc, plain
+    if not equal:
+        raise AssertionError("blend_tiles != the numpy slice adds")
+    log("[prepare] the C++ and numpy canvases byte-equal after both passes")
+    return out
+
+
+def score_city(root, city, ref_height, pred_height, grid_shp):
+    """``compare_height_products`` of the prediction against the reference,
+    then ``compare_grid_products`` and ``count_valid_samples`` on the grid:
+    finite numbers and well-formed CSVs."""
+    import csv
+
+    from srbh_tpu_torch.tools import products
+
+    sweep = os.path.join(root, "compare.csv")
+    rows = products.compare_height_products({city: (ref_height, pred_height)},
+                                            sweep)
+    with open(sweep, newline="") as f:
+        table = list(csv.reader(f))
+    if table[0] != ["city", "iou", "rmse", "mae", "me", "count"] or \
+            [r[0] for r in table[1:]] != [city, "all"]:
+        raise AssertionError(f"{sweep}: {table}")
+    for row in rows:
+        if not all(math.isfinite(float(row[k])) for k in
+                   ("iou", "rmse", "mae", "me")) or row["count"] <= 0:
+            raise AssertionError(f"compare_height_products: {row}")
+    cols = products.compare_grid_products(
+        ref_height, products.VirtualMosaic([pred_height]), grid_shp,
+        nresolution=2.5)
+    counts = products.count_valid_samples([grid_shp],
+                                          os.path.join(root, "num_valid.csv"))
+    with open(os.path.join(root, "num_valid.csv"), newline="") as f:
+        nv = list(csv.reader(f))
+    if nv != [["", "num_valid"], [city, str(counts[city])]] or \
+            not all(math.isfinite(v) for v in cols["diou"]):
+        raise AssertionError(f"count_valid_samples: {nv}")
+    log(f"[prepare] prediction vs the rasterised reference (decimetres): "
+        f"iou {rows[0]['iou']}, rmse {rows[0]['rmse']}, mae {rows[0]['mae']}, "
+        f"me {rows[0]['me']} over {rows[0]['count']} pixels; grid cells compared "
+        f"{sum(1 for v in cols['vrt_count'] if v)}, isv4 {counts[city]}")
+    return rows[0]
+
+
+def phase_prepare(wa, smi):
+    """Phase 12: a raw city prepared with the port alone (mosaic, warp and
+    clip of the WSF, the fishnet and its .prj, the rasterised reference
+    heights, training tiles, datalists and stats), mapped by the city CLI at
+    full width on the card and scored against the reference; the native
+    codec and blender against their plain versions."""
+    from srbh_tpu_torch.data import crs
+    from srbh_tpu_torch.data.grid import fishgrid_stats, write_fishgrid
+    from srbh_tpu_torch.data.tiff import TiffReader, write_tiff
+    from srbh_tpu_torch.predict import __main__ as cli
+    from srbh_tpu_torch.tools import preprocess, products
+    from srbh_tpu_torch.train.checkpoint import save_checkpoint
+    from srbh_tpu_torch.train.config import get_args
+    from srbh_tpu_torch.train.state import TrainState
+    from srbh_tpu_torch.train.trainer import build_models
+
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    wa.window_attention.launches = 0
+    timed, city = {}, "synth"
+    rng = np.random.default_rng(21)
+    with tempfile.TemporaryDirectory() as root:
+        raw = os.path.join(root, "raw")
+        citydir = os.path.join(root, "data", "urban", "input_data", "s2chn_large")
+        os.makedirs(raw)
+        os.makedirs(citydir)
+        s2, s1, wsf_tiles, footprints = write_raw_city(citydir, raw, city, rng)
+        timed["raw_written_s"] = time.perf_counter() - t_phase
+        t0 = time.perf_counter()
+        mosaic = os.path.join(raw, "wsf_4326.tif")
+        preprocess.mosaic_rasters(wsf_tiles, mosaic)
+        warped = os.path.join(raw, "wsf_32650.tif")
+        products.warp_raster(mosaic, warped, PREP_EPSG, 10.0, dtype=np.uint8)
+        masks = preprocess.main_gen_mask(citydir, warped, citydir)
+        s2path = os.path.join(citydir, f"{city}_s2.tif")
+        grid = write_fishgrid(s2path, 64, 56)
+        with open(grid[:-4] + ".prj") as f:
+            prj_code = crs.epsg_of(f.read())
+        if masks != [os.path.join(citydir, f"{city}_wsf.tif")] or prj_code != PREP_EPSG:
+            raise AssertionError(f"gen-mask {masks}, grid .prj EPSG {prj_code}")
+        cells = fishgrid_stats(masks[0], grid, condition=(0, 20, 4096))
+        n_valid = sum(1 for r in cells if r.attributes["isv"] == 1)
+        timed["wsf_and_grid_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ref_grid = os.path.join(raw, "grid_2.5m.tif")
+        gt25 = (500000.0, 2.5, 0.0, 4649776.0, 0.0, -2.5)
+        write_tiff(ref_grid, np.zeros((4 * PREP_SIDE, 4 * PREP_SIDE), np.uint8),
+                   gt25, geo_keys=crs.geokeys_for_epsg(PREP_EPSG))
+        floors = preprocess.shp2tif(footprints, ref_grid,
+                                    os.path.join(raw, "floors.tif"),
+                                    attribute="floors")
+        heights_dm = (preprocess.floor_field_to_height(floors.astype(np.uint16))
+                      * 10).astype(np.uint16)
+        ref_height = os.path.join(root, f"{city}_ref_height.tif")
+        write_tiff(ref_height, heights_dm, gt25, compress="DEFLATE",
+                   geo_keys=crs.geokeys_for_epsg(PREP_EPSG))
+        timed["rasterise_s"] = time.perf_counter() - t0
+        built = float((floors > 0).mean())
+        log(f"[prepare] WSF mosaic -> EPSG:{PREP_EPSG} warp -> clip to the S2 "
+            f"extent -> fishnet ({len(cells)} cells, {n_valid} valid, .prj "
+            f"EPSG:{prj_code}): {timed['wsf_and_grid_s']:.2f} s; "
+            f"{PREP_BUILDINGS} footprints rasterised at 2.5 m "
+            f"({4 * PREP_SIDE}^2, {built:.3f} built, max {int(floors.max())} "
+            f"floors): {timed['rasterise_s']:.2f} s")
+        if not (n_valid and built > 0.01):
+            raise AssertionError("no valid cells or no buildings burnt")
+        statsdir = prepare_tiles(os.path.join(root, "tiles"), city, s2, s1,
+                                 heights_dm, timed)
+        logdir = os.path.join(root, "logs")
+        argv = ["--datapath", os.path.join(root, "data"), "--logdir", logdir,
+                "--logdirhr", os.path.join(root, "no_sr_checkpoint"),
+                "--datastats", statsdir, "--s1dir", "s1x", "--s2dir", "s2x"]
+        t0 = time.perf_counter()
+        model, sr = build_models(get_args(city="globe", argv=argv))
+        with torch.no_grad():  # heights above the clamp at 0
+            model.reg.conv_last.bias.fill_(2.0)
+        os.makedirs(logdir)
+        save_checkpoint(logdir, TrainState(model), 20, 0.0)
+        del model, sr
+        results = cli.main(argv)
+        torch.cuda.synchronize()
+        timed["cli_main_s"] = time.perf_counter() - t0
+        if len(results) != 1:
+            raise AssertionError(f"CLI predicted {len(results)} cities")
+        pred = TiffReader(results[0][1])
+        if (pred.width, pred.height, pred.geotransform) != \
+                (4 * PREP_SIDE, 4 * PREP_SIDE, gt25):
+            raise AssertionError(f"{results[0][1]}: {pred.width}x{pred.height}")
+        log(f"[prepare] checkpoint written and the city CLI (full width, "
+            f"bfloat16, batch 16, {n_valid} windows): {timed['cli_main_s']:.2f} s")
+        timed["score"] = score_city(root, city, ref_height, results[0][1], grid)
+        timed.update(native_vs_plain(s2, smi))
+    timed["launches"] = wa.window_attention.launches
+    timed["phase_s"] = time.perf_counter() - t_phase
+    log(f"[prepare] window_attention launches: {timed['launches']}; phase "
+        f"{timed['phase_s']:.1f} s; {smi}")
+    if timed["launches"]:
+        raise AssertionError("the preparation path launched the hand kernel")
+    return timed
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2570,6 +2989,8 @@ def main() -> int:
     log(f"[long_tail] summary {json.dumps(long_tail)}")
     tools = phase_tools(wa, smi, flagship)
     log(f"[tools] summary {json.dumps(tools)}")
+    prepare = phase_prepare(wa, smi)
+    log(f"[prepare] summary {json.dumps(prepare)}")
     gan = phase_gan(wa, smi)
     log(f"[gan] summary {json.dumps(gan)}")
 
@@ -2591,6 +3012,7 @@ def main() -> int:
                              "swinir_harness_main": entry_points["harness_launches"],
                              "long_tail": long_tail["launches"],
                              "tools": tools["launches"],
+                             "prepare": prepare["launches"],
                              "gan": gan["launches"]},
         "max_abs_err": max(r["max_abs_err"] for n, r in rows.items()
                            if "bf16" not in n),

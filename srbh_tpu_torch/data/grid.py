@@ -25,6 +25,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from srbh_tpu_torch.data import crs
 from srbh_tpu_torch.data.shapefile import (
     ShapeRecord,
     read_shapefile,
@@ -87,18 +88,17 @@ def write_fishgrid(tif_path: str, window_size: int = 64, offset: int = 56,
 
     The grid inherits the raster's CRS as a ``.prj`` sidecar (the reference
     stamps the layer SRS from the raster projection,
-    generate_WSF_mask_Globeheight_grid.py:323-327); pass ``prj_wkt``. A
-    raster with GeoKeys and no ``prj_wkt`` raises: the EPSG -> WKT table
-    (``srbh_tpu/data/crs.py``) is not ported (``ROADMAP.md`` Queue 1 item
-    14). A raster without GeoKeys gets no ``.prj``."""
+    generate_WSF_mask_Globeheight_grid.py:323-327): the WKT of the EPSG
+    code in its GeoKeys; pass ``prj_wkt`` to override. A raster without
+    GeoKeys, or with a code that ``crs.wkt_for_epsg`` does not know, gets
+    no ``.prj``."""
     r = TiffReader(tif_path)
     cells = fishgrid_cells(r.width, r.height, r.geotransform,
                            window_size, offset)
-    if prj_wkt is None and r.info().geo_keys:
-        raise NotImplementedError(
-            f"{tif_path} carries GeoKeys: pass prj_wkt; the EPSG -> .prj "
-            "table (srbh_tpu/data/crs.py) is not ported yet: ROADMAP.md "
-            "Queue 1 item 14")
+    if prj_wkt is None:
+        code = crs.epsg_from_geokeys(r.info().geo_keys or b"")
+        if code is not None and crs.supported_epsg(code):
+            prj_wkt = crs.wkt_for_epsg(code)
     out = tif_path[:-4] + "_grid.shp"
     write_shapefile(out, [ShapeRecord(c) for c in cells], prj_wkt=prj_wkt)
     return out

@@ -25,12 +25,12 @@ import zlib
 import numpy as np
 
 IMREAD_UNCHANGED, IMREAD_GRAYSCALE, IMREAD_COLOR = -1, 0, 1
-_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 
 
 def _chunks(data: bytes):
-    pos = len(_SIGNATURE)
+    pos = len(PNG_SIGNATURE)
     while pos + 8 <= len(data):
         n, kind = struct.unpack(">I4s", data[pos: pos + 8])
         yield kind, data[pos + 8: pos + 8 + n]
@@ -83,7 +83,7 @@ def read_png(path: str) -> np.ndarray:
     ``tRNS`` chunk), uint8 or uint16."""
     with open(path, "rb") as f:
         data = f.read()
-    if not data.startswith(_SIGNATURE):
+    if not data.startswith(PNG_SIGNATURE):
         raise ValueError(f"{path}: not a PNG file")
     chunks = list(_chunks(data))
     w, h, depth, ctype, _, _, interlace = struct.unpack(">IIBBBBB", chunks[0][1])
@@ -150,7 +150,7 @@ def imwrite(path: str, img: np.ndarray) -> bool:
     h, w = img.shape[:2]
     rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, -1)], 1)
     with open(path, "wb") as f:
-        f.write(_SIGNATURE
+        f.write(PNG_SIGNATURE
                 + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0))
                 + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
                 + _chunk(b"IEND", b""))

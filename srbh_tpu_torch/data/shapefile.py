@@ -134,7 +134,10 @@ def write_shapefile(
     fields: Optional[Sequence[Tuple[str, str, int, int]]] = None,
     prj_wkt: Optional[str] = None,
 ):
-    """Write axis-aligned rectangle polygons (one ring per record).
+    """Write polygon records: a record's ``rings`` as its parts when it has
+    them, else its bounds as one axis-aligned rectangle (all that the JAX
+    package's writer writes, and then the same bytes). The header and each
+    record carry ``bounds`` as given.
 
     ``fields``: (name, 'N'|'C', length, decimals) DBF spec; values come from
     each record's ``attributes``.
@@ -148,13 +151,16 @@ def write_shapefile(
         gminx, gminy = min(gminx, minx), min(gminy, miny)
         gmaxx, gmaxy = max(gmaxx, maxx), max(gmaxy, maxy)
         # one closed ring, clockwise (shapefile outer-ring convention)
-        pts = [(minx, maxy), (maxx, maxy), (maxx, miny), (minx, miny), (minx, maxy)]
+        rings = rec.rings or [[(minx, maxy), (maxx, maxy), (maxx, miny),
+                               (minx, miny), (minx, maxy)]]
+        starts = np.cumsum([0] + [len(r) for r in rings])
         content = struct.pack("<i", 5)
         content += struct.pack("<4d", minx, miny, maxx, maxy)
-        content += struct.pack("<ii", 1, len(pts))  # numparts, numpoints
-        content += struct.pack("<i", 0)  # part index
-        for x, y in pts:
-            content += struct.pack("<2d", x, y)
+        content += struct.pack("<ii", len(rings), int(starts[-1]))
+        content += struct.pack(f"<{len(rings)}i", *(int(v) for v in starts[:-1]))
+        for ring in rings:
+            for x, y in ring:
+                content += struct.pack("<2d", x, y)
         shp_records.append(content)
 
     shp = bytearray()

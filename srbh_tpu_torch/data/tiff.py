@@ -1,7 +1,8 @@
-"""Minimal GeoTIFF reader/writer (pure numpy + zlib).
+"""Minimal GeoTIFF reader/writer (numpy, zlib and the port's native codec).
 
-The port's copy of ``srbh_tpu/data/tiff.py``, with its pure-Python codecs
-only (the JAX package's C++ codec in ``srbh_tpu/native`` is not used):
+The port's copy of ``srbh_tpu/data/tiff.py``. PackBits and LZW go through
+the port's C++ codec (``srbh_tpu_torch/native``), as the JAX package's do
+through its own; the Python codecs here stay as their plain versions:
 
 * read: uint8/uint16/int16/uint32/float32/float64; strip and tile layouts;
   None/PackBits/Deflate/LZW compression; the horizontal-differencing
@@ -29,6 +30,8 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+
+from srbh_tpu_torch import native
 
 # TIFF tag ids
 T_WIDTH, T_LENGTH, T_BITS, T_COMPRESSION, T_PHOTOMETRIC = 256, 257, 258, 259, 262
@@ -142,9 +145,9 @@ def _decompress(data: bytes, method: int, expected: int) -> bytes:
     if method in (8, 32946):
         return zlib.decompress(data)[:expected]
     if method == 32773:
-        return _packbits_decode(data, expected)
+        return native.packbits_decode(data, expected)
     if method == 5:
-        return _lzw_decode(data, expected)
+        return native.lzw_decode(data, expected)
     raise ValueError(f"unsupported TIFF compression {method}")
 
 
@@ -348,7 +351,7 @@ def _compress(data: bytes, method: Optional[str]) -> Tuple[bytes, int]:
     if method.upper() == "DEFLATE":
         return zlib.compress(data, 6), 8
     if method.upper() == "PACKBITS":
-        return _packbits_encode(data), 32773
+        return native.packbits_encode(data), 32773
     raise ValueError(f"unsupported write compression {method!r}")
 
 

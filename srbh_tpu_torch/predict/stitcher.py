@@ -8,15 +8,19 @@ together with an overlap counter; the mosaic divides by the counter at the
 end and the build canvas argmaxes to a class map.
 
 The sums are int64 (no uint16 overflow mid-sum), and the final
-``round(sum / weight) -> uint16`` is the reference's. Each tile is added as
-one slice of each canvas, in numpy (the JAX package's C++ blender is not
-used).
+``round(sum / weight) -> uint16`` is the reference's. ``add_batch`` adds
+through the port's C++ blender (``srbh_tpu_torch/native``), as the JAX
+package's does through its own, after widening uint8 build tiles to uint16;
+``add_batch_plain``, one numpy slice add per tile and canvas, is its plain
+version.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 import numpy as np
+
+from srbh_tpu_torch import native
 
 
 class MosaicAccumulator:
@@ -33,7 +37,15 @@ class MosaicAccumulator:
         """height (N, T, T) uint16; build (N, T, T, C) uint8 or uint16;
         pos (N, 4) [xoff, yoff, xcount, ycount] in source pixels. Only the
         first ``ycount x upscale`` rows and ``xcount x upscale`` columns of
-        a tile are added."""
+        a tile are added; a tile whose window leaves the canvas raises."""
+        if build_u16.dtype == np.uint8:  # the compact transfer staging
+            build_u16 = build_u16.astype(np.uint16)
+        native.blend_tiles(self.height_sum, self.build_sum, self.weight,
+                           height_u16, build_u16, pos, self.upscale)
+
+    def add_batch_plain(self, height_u16: np.ndarray, build_u16: np.ndarray,
+                        pos: np.ndarray):
+        """``add_batch`` in numpy: the plain version of the C++ blender."""
         s = self.upscale
         for i in range(height_u16.shape[0]):
             xoff, yoff, xc, yc = (int(v) * s for v in pos[i])

@@ -228,13 +228,26 @@ def test_write_fishgrid_tif_equals_jax(tmp_path):
         assert _read(out[:-4] + e) == data
 
 
-def test_write_fishgrid_with_geokeys_needs_a_prj(tmp_path):
-    _city(str(tmp_path), np.random.default_rng(2), geo_keys=GEO_KEYS)
+@pytest.mark.parametrize("code", [32650, 3395])
+def test_write_fishgrid_with_geokeys_needs_a_prj(code, tmp_path):
+    """A raster with GeoKeys gets the .prj of their EPSG code, the JAX
+    package's bytes; a code without a WKT (3395) gets no .prj, as there."""
+    keys = np.array([1, 1, 0, 2, 1024, 0, 1, 1, 3072, 0, 1, code],
+                    "<u2").tobytes()
+    _city(str(tmp_path), np.random.default_rng(2), geo_keys=keys)
     src = str(tmp_path / "demo_s2.tif")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        grid.write_fishgrid(src)
+    out = jgrid.write_fishgrid(src)
+    want = {e: _read(out[:-4] + e) for e in (".shp", ".shx", ".dbf", ".prj")
+            if os.path.exists(out[:-4] + e)}
+    for e in want:
+        os.remove(out[:-4] + e)
+    assert (".prj" in want) == (code == 32650)
+    assert grid.write_fishgrid(src) == out
+    assert {e: _read(out[:-4] + e) for e in (".shp", ".shx", ".dbf", ".prj")
+            if os.path.exists(out[:-4] + e)} == want
+    assert grid.fishgrid_cells(200, 150, GT) == \
+        [r.bounds for r in shapefile.read_shapefile(out)]
     out = grid.write_fishgrid(src, prj_wkt='PROJCS["utm50n"]')
     with open(out[:-4] + ".prj") as f:
         assert f.read() == 'PROJCS["utm50n"]'
-    assert grid.fishgrid_cells(200, 150, GT) == \
-        [r.bounds for r in shapefile.read_shapefile(out)]
+

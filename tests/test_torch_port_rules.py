@@ -1,6 +1,7 @@
 """Rules the PyTorch port keeps.
 
-* It imports nothing of JAX, flax or the JAX package ``srbh_tpu``.
+* It imports nothing of JAX, flax or the JAX package ``srbh_tpu``, and none
+  of pandas, cv2, osgeo, pyproj or PIL, which the card's machine lacks.
 * Its entry points run on the card unless the caller asks for the CPU: with
   no card and ``device=None`` they raise instead of running on the CPU.
 * No module of the port catches a failed kernel build or launch (it has no
@@ -68,17 +69,23 @@ def test_port_has_the_slice_modules():
                  "tools.train_diag", "tools.sr_train_bench",
                  "tools.loader_bench", "tools.composed_bench",
                  "tools.predict_stress", "tools.ref_bench",
-                 "tools.export_model"):
+                 "tools.export_model", "data.crs", "data.datalist",
+                 "data.stats", "data.legacy", "data.raster",
+                 "tools.preprocess", "tools.products", "native"):
         assert f"srbh_tpu_torch.{name}" in mods
 
 
 def test_port_imports_no_jax():
+    """Nor what the card's machine lacks: pandas, cv2, GDAL's osgeo, pyproj
+    and PIL."""
+    banned = ("jax", "flax", "srbh_tpu", "pandas", "cv2", "osgeo", "pyproj",
+              "PIL")
     code = (
         "import importlib, sys\n"
         f"for m in {port_modules()!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = sorted(n for n in sys.modules if n in ('jax', 'flax', "
-        "'srbh_tpu') or n.startswith(('jax.', 'flax.', 'srbh_tpu.')))\n"
+        f"banned = {banned!r}\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in banned)\n"
         "print('BAD', bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
