@@ -6,7 +6,8 @@
 Runs from the root of the repository on a machine with one NVIDIA H100 and
 the CUDA toolkit (``nvcc``). It builds the Hopper window-attention kernel
 from ``srbh_tpu_torch/csrc/``, then drives the port's two serving paths, its
-two training paths, its two test entry points and its preparation tools:
+two training paths, its two test entry points, its preparation tools and
+its parallel modes:
 
 1. the card: name, count, ``nvidia-smi`` name and power limit;
 2. the kernel build, with ``-Xptxas -v`` (registers, shared memory, spills;
@@ -167,7 +168,28 @@ two training paths, its two test entry points and its preparation tools:
    ``add_batch`` against numpy's at phase 7's tile shapes (batch 16 of
    256 x 256, 7 classes) on a 4096^2 canvas, first touch and warm (ms per
    ``add_batch`` and MB/s of each). The hand kernel's launches over the
-   phase (none).
+   phase (none);
+13. the parallel modes, run after phase 12 and before the GAN: the card's
+   machine has one H100 and NCCL puts one rank on a card, so the process
+   group has one rank (``parallel.mesh.initialize_distributed``, NCCL,
+   through a file store); the global BatchNorm's multi-rank function
+   (``parallel.data._GlobalBatchNorm``) over that one rank against
+   ``nn.BatchNorm2d`` (outputs, gradients, running statistics within 1e-4
+   x (1 + |b|)); the full-width height step (RRDBNet-23 + EfficientNet-B4,
+   batch 16, float32) plain, under DDP, under DDP with the global
+   BatchNorm on its multi-rank path (the path of every DDP or FSDP2 step
+   over more than one rank; at one rank the module hands the statistics to
+   cuDNN) and under FSDP2 of the model and the frozen trunk (as
+   ``trainer.main(fsdp=True)`` shards them) from the same weights, the
+   first step of each held to the plain one (loss, rmse, log-vars within
+   1e-4 x (1 + |b|); parameters by the gradient-noise rule), then each
+   one's tiles/s (median and quartiles over 10 steps on the host clock,
+   each ending in a synchronise) with the card's name and power limit;
+   ``make_city_step(mesh=...)``, ``data`` and
+   ``spatial``, byte-equal to the plain step at batch 32, and
+   ``stitch_tiles_sharded`` byte-equal to ``stitch_tiles`` on its
+   outputs; then ``entry.dryrun_multichip(1)`` (one NCCL process it
+   starts). The hand kernel's launches over the phase (none).
 
 TF32 is off for the whole run (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32`` are False), so float32 means
@@ -2961,6 +2983,311 @@ def phase_prepare(wa, smi):
     return timed
 
 
+PARALLEL_BATCH, PARALLEL_STEPS = 16, 10  # phase 13: 10 timed steps each
+# phase 13's parameters against the plain step: an element is a fault beyond
+# 1e-4 where the plain step's gradient (weight decay added) stands clear of
+# twice this share of its tensor's largest plus 1e-6 x the model's largest
+# (the CPU tests' gradient-noise rule), and the share beyond stays under
+# the CPU tests' bound for a first step
+PARALLEL_NOISE, PARALLEL_SHARE = 0.02, 0.013
+
+
+def multi_rank_batchnorm():
+    """``GlobalBatchNorm2d`` that takes its multi-rank path
+    (``_GlobalBatchNorm``: statistics all-gathered, sums all-reduced in the
+    backward) at any world size; at one rank it is exact, and the module's
+    own form hands that rank to ``nn.BatchNorm2d``."""
+    from srbh_tpu_torch.parallel.data import GlobalBatchNorm2d, _GlobalBatchNorm
+
+    class MultiRankBatchNorm2d(GlobalBatchNorm2d):
+        def forward(self, x):
+            if not self.training:
+                return super().forward(x)
+            return _GlobalBatchNorm.apply(x.float(), self.weight, self.bias,
+                                          self, self.data_group.group).to(x.dtype)
+
+    return MultiRankBatchNorm2d
+
+
+# phase 13's per-channel BatchNorm gradients (sums over N x H x W float32
+# terms, summed in another order by cuDNN): |a - b| <= this x sum |term|
+REDUCE_TOL = 1e-5
+
+
+def check_global_batchnorm(group):
+    """``_GlobalBatchNorm`` on the card over the one-rank data group against
+    ``nn.BatchNorm2d`` in training mode, two steps at batch 16 at the
+    EfficientNet-B4 stem's and last stage's widths: outputs, the input's
+    gradient and the running statistics after each step within
+    ``TRAIN_TOL`` x (1 + |b|); the weight's and bias's gradients, each a
+    channel's sum of ``g * xhat`` / ``g``, within ``REDUCE_TOL`` of the sum
+    of the terms' magnitudes, and each one's distance from the float64 sums
+    logged in that unit. Returns the errors."""
+    from srbh_tpu_torch.parallel.data import global_batchnorm
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    multi = multi_rank_batchnorm()
+    dims = (0, 2, 3)
+    errs = {}
+    shapes = ((PARALLEL_BATCH, 48, 128, 128), (PARALLEL_BATCH, 448, 8, 8))
+    for shape in shapes:
+        ref = torch.nn.BatchNorm2d(shape[1]).cuda().train()
+        with torch.no_grad():
+            ref.weight.uniform_(0.5, 1.5, generator=gen)
+            ref.bias.uniform_(-0.5, 0.5, generator=gen)
+        glob = global_batchnorm(copy.deepcopy(ref), group)
+        glob.__class__ = multi
+        for _ in range(2):
+            x = torch.randn(shape, device="cuda", generator=gen) * 3 + 1
+            g = torch.randn(shape, device="cuda", generator=gen)
+            out = []
+            for bn in (glob, ref):
+                xi = x.clone().requires_grad_(True)
+                bn.zero_grad()
+                y = bn(xi)
+                y.backward(g)
+                out.append(dict(out=y, grad_x=xi.grad,
+                                running_mean=bn.running_mean,
+                                running_var=bn.running_var,
+                                grad_weight=bn.weight.grad,
+                                grad_bias=bn.bias.grad))
+            for key in ("out", "grad_x", "running_mean", "running_var"):
+                a, b = out[0][key], out[1][key]
+                err = ((a - b).abs() / (1 + b.abs())).max().item()
+                errs[key] = max(errs.get(key, 0.0), err)
+            x64, g64 = x.double(), g.double()
+            var, mean = torch.var_mean(x64, dims, correction=0, keepdim=True)
+            terms = {"grad_weight": g64 * (x64 - mean) * torch.rsqrt(
+                var + ref.eps), "grad_bias": g64}
+            for key, t in terms.items():
+                size = t.abs().sum(dims)
+                exact = t.sum(dims)
+                for name, a in (("", out[0][key]),
+                                ("_f64_global", out[0][key]),
+                                ("_f64_cudnn", out[1][key])):
+                    b = out[1][key] if not name else exact
+                    err = ((a.double() - b).abs() / size).max().item()
+                    errs[key + name] = max(errs.get(key + name, 0.0), err)
+        if int(glob.num_batches_tracked) != int(ref.num_batches_tracked):
+            raise AssertionError("the global BatchNorm counts its steps apart")
+    log("[parallel] _GlobalBatchNorm over the one-rank NCCL group against "
+        f"nn.BatchNorm2d, two steps at {shapes[0]} and {shapes[1]}: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) +
+        f" (|a-b|/(1+|b|) <= {TRAIN_TOL:.0e}; the parameter gradients "
+        f"|a-b| / sum |term| <= {REDUCE_TOL:.0e})")
+    elementwise = ("out", "grad_x", "running_mean", "running_var")
+    if not (max(errs[k] for k in elementwise) <= TRAIN_TOL
+            and max(errs["grad_weight"], errs["grad_bias"]) <= REDUCE_TOL):
+        raise AssertionError("the global BatchNorm disagrees with "
+                             "nn.BatchNorm2d")
+    return errs
+
+
+def parallel_step_run(mode, model, sr, batch, mesh, smi):
+    """One full-width height step from ``model``'s weights in ``mode``
+    (``plain``; ``ddp``: DDP over the one-rank data group; ``ddp_multi``:
+    the same with the global BatchNorm on its multi-rank path,
+    :func:`multi_rank_batchnorm`; ``fsdp``: FSDP2 of the model and the
+    frozen trunk, as ``trainer.main(fsdp=True)`` shards them), then
+    ``PARALLEL_STEPS`` more timed on the host clock, each ending in a
+    synchronise: the first step's metrics, the parameters after it and the
+    gradient Adam was handed (weight decay added), whole; tiles/s median
+    and quartiles."""
+    from torch.distributed.fsdp import FSDPModule
+
+    from srbh_tpu_torch.parallel import mesh as pmesh
+    from srbh_tpu_torch.parallel.data import GlobalBatchNorm2d, global_batchnorm
+    from srbh_tpu_torch.train.checkpoint import whole
+    from srbh_tpu_torch.train.state import TrainState
+    from srbh_tpu_torch.train.steps import make_train_step
+
+    group = None if mode == "plain" else mesh.get_group(pmesh.DATA_AXIS)
+    m = copy.deepcopy(model).cuda()
+    groups = None
+    if mode == "fsdp":
+        global_batchnorm(m, group)
+        pmesh.shard_state_fsdp(m, mesh)
+        sr = pmesh.shard_state_fsdp(copy.deepcopy(sr).requires_grad_(False),
+                                    mesh)
+        groups = [sum(isinstance(x, FSDPModule) for x in net.modules())
+                  for net in (m, sr)]
+        log(f"[parallel] FSDP2 groups: {groups[0]} of the height model, "
+            f"{groups[1]} of the frozen trunk")
+    state = TrainState(m)
+    kept, apply = {}, state.apply_gradients
+    decay = state.optimizer.param_groups[0]["weight_decay"]
+
+    def keep(lr):
+        if not kept:
+            kept.update(whole({n: p.grad + decay * p.detach()
+                               for n, p in m.named_parameters()}))
+        return apply(lr)
+
+    state.apply_gradients = keep
+    step = make_train_step(m, sr, device="cuda", group=group)
+    if mode == "ddp_multi":
+        multi = multi_rank_batchnorm()
+        swapped = [x for x in m.modules() if isinstance(x, GlobalBatchNorm2d)]
+        for x in swapped:
+            x.__class__ = multi
+        log(f"[parallel] ddp_multi: {len(swapped)} BatchNorms on the "
+            f"multi-rank path")
+    metrics = {k: v.cpu() for k, v in step(state, batch, 1e-3).items()}
+    params = {n: t.cpu().clone() for n, t in whole(
+        {n: p.detach() for n, p in m.named_parameters()}).items()}
+    grads = {n: g.double().cpu() for n, g in kept.items()}
+    times = []
+    for _ in range(PARALLEL_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, batch, 1e-3)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    q1, med, q3 = np.percentile(times, [25, 50, 75])
+    rate = dict(tiles_per_s=PARALLEL_BATCH / med, q1_tiles_per_s=PARALLEL_BATCH / q3,
+                q3_tiles_per_s=PARALLEL_BATCH / q1, ms_per_step=1e3 * med,
+                steps=PARALLEL_STEPS, fsdp_groups=groups)
+    rate["kernels"] = profile(f"parallel {mode} step", lambda: step(
+        state, batch, 1e-3), warm=False, host_ops=False)[:8]
+    log(f"[parallel] {mode} step, RRDBNet-23 + EfficientNet-B4, batch "
+        f"{PARALLEL_BATCH}, float32: {rate['tiles_per_s']:.2f} tiles/s median "
+        f"(quartiles {rate['q1_tiles_per_s']:.2f}-{rate['q3_tiles_per_s']:.2f}, "
+        f"{PARALLEL_STEPS} steps, {1e3 * med:.2f} ms a step); {smi}")
+    del state, step, m
+    torch.cuda.empty_cache()
+    return metrics, params, grads, rate
+
+
+def check_parallel_step(mode, got, want):
+    """``mode``'s first step against the plain one: loss, rmse and log-vars
+    within ``TRAIN_TOL`` x (1 + |b|); parameters by the gradient-noise
+    rule."""
+    (gm, gp, _, _), (wm, wp, wg, _) = got, want
+    for key in ("loss", "rmse", "log_vars"):
+        err = ((gm[key] - wm[key]).abs() / (1 + wm[key].abs())).max().item()
+        log(f"[parallel] {mode} {key} against the plain step: max "
+            f"|a-b|/(1+|b|)={err:.3e} (tol {TRAIN_TOL:.0e})")
+        if not err <= TRAIN_TOL:
+            raise AssertionError(f"{mode} {key} disagrees with the plain step")
+    scale = max(g.abs().max().item() for g in wg.values())
+    beyond = faults = total = 0
+    for n, g in wg.items():
+        clear = g.abs() > 2 * PARALLEL_NOISE * g.abs().max() + 1e-6 * scale
+        differ = (gp[n].double() - wp[n].double()).abs() > 1e-4
+        beyond += int(differ.sum())
+        faults += int((differ & clear).sum())
+        total += g.numel()
+    log(f"[parallel] {mode} parameters against the plain step: {beyond} of "
+        f"{total} beyond 1e-4 (share {beyond / total:.2e}, bound "
+        f"{PARALLEL_SHARE:g}); {faults} where the gradient stands clear")
+    if faults or beyond / total >= PARALLEL_SHARE:
+        raise AssertionError(f"{mode} parameters disagree with the plain step")
+
+
+def parallel_city(mesh, model, sr):
+    """The mesh city step (``data`` and ``spatial``) byte-equal to the plain
+    step at batch ``CITY_BATCH``, and the sharded stitcher byte-equal to
+    ``stitch_tiles`` on its outputs."""
+    from srbh_tpu_torch.predict.device_stitcher import (
+        stitch_tiles,
+        stitch_tiles_sharded,
+    )
+    from srbh_tpu_torch.predict.predictor import make_city_step
+
+    image = np.random.default_rng(13).uniform(
+        0, 1, (CITY_BATCH, 64, 64, 8)).astype(np.float32)
+    want = make_city_step(model, sr, dtype=torch.float32, device="cuda")(image)
+    for partition in ("data", "spatial"):
+        got = make_city_step(model, sr, dtype=torch.float32, device="cuda",
+                             mesh=mesh, partition=partition)(image)
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        log(f"[parallel] make_city_step(mesh, partition={partition!r}) at "
+            f"batch {CITY_BATCH}: byte-equal to the plain step: {same}")
+        if not same:
+            raise AssertionError(f"mesh city step ({partition}) differs")
+    tile = image.shape[1]
+    pos = np.zeros((CITY_BATCH, 4), np.int64)
+    pos[:, 0] = np.arange(CITY_BATCH) % 8 * (tile - 8)  # a 64/56 fishnet, 8 x 4
+    pos[:, 1] = np.arange(CITY_BATCH) // 8 * (tile - 8)
+    pos[:, 2:] = tile
+    hw = (4 * (3 * (tile - 8) + tile), 4 * (7 * (tile - 8) + tile))
+    sharded = stitch_tiles_sharded(want[0], want[1], pos, hw, mesh, 4)
+    single = stitch_tiles(want[0], want[1], pos, hw, 4)
+    same = all(torch.equal(a, b) for a, b in zip(sharded, single))
+    log(f"[parallel] stitch_tiles_sharded of {CITY_BATCH} overlapping "
+        f"windows: byte-equal to stitch_tiles: {same}; largest weight "
+        f"{int(sharded[2].max())}")
+    if not same or int(sharded[2].max()) < 2:
+        raise AssertionError("sharded stitcher differs")
+
+
+def phase_parallel(wa, smi):
+    """Phase 13: the parallel modes on the one card. The card's machine
+    has one H100, and NCCL puts one rank on a card, so the collectives run
+    at world size 1: ``initialize_distributed`` (NCCL), the global
+    BatchNorm's multi-rank function against ``nn.BatchNorm2d``, the
+    full-width height step under DDP (its BatchNorms as at one rank, and
+    on their multi-rank path) and FSDP2 against the plain step (first step
+    held to it, then the rates of each), the mesh city step and the sharded
+    stitcher against the plain ones, and ``dryrun_multichip(1)`` (one NCCL
+    process it starts)."""
+    import torch.distributed as dist
+
+    from srbh_tpu_torch import entry
+    from srbh_tpu_torch.models.layers import init_weights
+    from srbh_tpu_torch.parallel import mesh as pmesh
+
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    wa.window_attention.launches = 0
+    timed = {}
+    with tempfile.TemporaryDirectory() as store:
+        dev = pmesh.initialize_distributed(f"file://{store}/store", 1, 0)
+        mesh = pmesh.make_mesh()
+        log(f"[parallel] process group: backend {dist.get_backend()}, world "
+            f"size {dist.get_world_size()}, device {dev}; mesh "
+            f"{tuple(mesh.shape)} {mesh.mesh_dim_names}")
+        model, sr = entry.modules(tiny=False)
+        gen = torch.Generator().manual_seed(0)
+        init_weights(sr, gen)
+        init_weights(model, gen)
+        sr = sr.cuda()
+        batch = {k: torch.as_tensor(v, device="cuda") for k, v in
+                 train_batch(np.random.default_rng(11), PARALLEL_BATCH).items()}
+        timed["global_bn_errors"] = check_global_batchnorm(
+            mesh.get_group(pmesh.DATA_AXIS))
+        modes = ("ddp", "ddp_multi", "fsdp")
+        runs = {mode: parallel_step_run(mode, model, sr, batch, mesh, smi)
+                for mode in ("plain",) + modes}
+        for mode in modes:
+            check_parallel_step(mode, runs[mode], runs["plain"])
+        rates = {mode: r[3] for mode, r in runs.items()}
+        for mode in modes:
+            cost = rates["plain"]["tiles_per_s"] / rates[mode]["tiles_per_s"] - 1
+            log(f"[parallel] {mode} at world size 1 against the plain step: "
+                f"{100 * cost:+.2f} % time a step; {smi}")
+        timed["steps_s"] = time.perf_counter() - t_phase
+        del runs
+        t0 = time.perf_counter()
+        parallel_city(mesh, model.eval().cuda(), sr)
+        timed["city_s"] = time.perf_counter() - t0
+        dist.destroy_process_group()
+    del model, sr
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    line = entry.dryrun_multichip(1)
+    timed["dryrun_s"] = time.perf_counter() - t0
+    log(f"[parallel] {line}")
+    launches = wa.window_attention.launches
+    timed["phase_s"] = time.perf_counter() - t_phase
+    log(f"[parallel] window_attention launches over the phase: {launches}; "
+        f"phase {timed['phase_s']:.1f} s")
+    if launches:
+        raise AssertionError("the parallel path launched the hand kernel")
+    return {"launches": launches, "rates": rates, "timed": timed,
+            "dryrun": line}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2991,6 +3318,8 @@ def main() -> int:
     log(f"[tools] summary {json.dumps(tools)}")
     prepare = phase_prepare(wa, smi)
     log(f"[prepare] summary {json.dumps(prepare)}")
+    parallel = phase_parallel(wa, smi)
+    log(f"[parallel] summary {json.dumps(parallel)}")
     gan = phase_gan(wa, smi)
     log(f"[gan] summary {json.dumps(gan)}")
 
@@ -3013,6 +3342,7 @@ def main() -> int:
                              "long_tail": long_tail["launches"],
                              "tools": tools["launches"],
                              "prepare": prepare["launches"],
+                             "parallel": parallel["launches"],
                              "gan": gan["launches"]},
         "max_abs_err": max(r["max_abs_err"] for n, r in rows.items()
                            if "bf16" not in n),

@@ -6,7 +6,13 @@ pin_memory=True)``: the same index order (a ``default_rng(seed + epoch)``
 shuffle), the same ``set_epoch`` call on the dataset at the start of every
 epoch (before the epoch's workers start, so each holds that epoch), and
 batches of stacked samples (the last one may be short, or with
-``drop_last`` is left out). ``num_workers``
+``drop_last`` is left out). With ``num_shards`` > 1 the loader reads only
+shard ``shard_index`` of each epoch's order, ``idx[shard_index::num_shards]``
+cut to ``len(dataset) // num_shards`` samples so every shard is as long (a
+rank with one batch more would leave the others waiting in a collective):
+the JAX loader's split. Shard ``r``'s ``k``-th batch of ``b`` is then the
+rows ``r, r + n, ...`` of the single loader's ``k``-th batch of ``n x b``.
+``num_workers``
 processes load the samples. With ``device_put`` the batches are collated
 into pinned host tensors when ``device`` (``None`` is the card) is a card,
 and copied to it with ``non_blocking=True``, but for ``path`` and the keys
@@ -29,17 +35,21 @@ class _EpochOrder(torch.utils.data.Sampler):
     """The sample indices of epoch ``epoch``: ``default_rng(seed + epoch)``
     shuffles them, as the JAX loader does."""
 
-    def __init__(self, n: int, shuffle: bool, seed: int):
+    def __init__(self, n: int, shuffle: bool, seed: int, shard_index: int = 0,
+                 num_shards: int = 1):
+        if not 0 <= shard_index < num_shards:
+            raise ValueError(f"shard_index {shard_index} of {num_shards}")
         self.n, self.shuffle, self.seed, self.epoch = n, shuffle, seed, 0
+        self.shard_index, self.num_shards = shard_index, num_shards
 
     def __len__(self):
-        return self.n
+        return self.n // self.num_shards if self.num_shards > 1 else self.n
 
     def __iter__(self):
         idx = np.arange(self.n)
         if self.shuffle:
             np.random.default_rng(self.seed + self.epoch).shuffle(idx)
-        return iter(idx.tolist())
+        return iter(idx[self.shard_index::self.num_shards][:len(self)].tolist())
 
 
 class DataLoader:
@@ -49,12 +59,14 @@ class DataLoader:
     def __init__(self, dataset, batch_size: int = 16, shuffle: bool = False,
                  num_workers: int = 4, seed: int = 1337,
                  device_put: bool = False, device=None,
-                 host_keys: Sequence[str] = (), drop_last: bool = False):
+                 host_keys: Sequence[str] = (), drop_last: bool = False,
+                 shard_index: int = 0, num_shards: int = 1):
         self.dataset = dataset
         self.host_keys = ("path", *host_keys)
         self.device = resolve_device(device) if device_put else None
         self.epoch = 0
-        self._order = _EpochOrder(len(dataset), shuffle, seed)
+        self._order = _EpochOrder(len(dataset), shuffle, seed, shard_index,
+                                  num_shards)
         self._loader = torch.utils.data.DataLoader(
             dataset, batch_size=batch_size, sampler=self._order,
             num_workers=num_workers, drop_last=drop_last,

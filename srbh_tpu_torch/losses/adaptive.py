@@ -8,11 +8,18 @@ pure functions, with each task's ``log_var`` held by the train state
 The class axis of logits and probabilities is dim 1 (NCHW), where the JAX
 functions take it last. Labels outside ``[0, C-1]`` are clamped into it, as
 the JAX ``pick_class`` does (``F.cross_entropy`` would raise on them).
+
+Under data parallelism the dice losses take the data ``group``: the dice
+is one ratio over the whole global batch, so its three sums are
+all-reduced with autograd (``parallel.collectives.all_reduce_sum``); the
+means stay per rank, and averaging the ranks' gradients makes them global.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from srbh_tpu_torch.parallel.collectives import all_reduce_sum
 
 
 def _adapt(loss: torch.Tensor, log_var: torch.Tensor) -> torch.Tensor:
@@ -65,13 +72,17 @@ def smooth_l1(pred, target):
     return F.huber_loss(torch.sigmoid(pred), target, delta=1.0)
 
 
-def dice_binary(prob, target, smooth: float = 1.0):
+def dice_binary(prob, target, smooth: float = 1.0, group=None):
     """Soft dice on a foreground-probability map (selfloss.py:6-17): one
-    global dice over the flattened batch."""
+    global dice over the flattened batch, and with a data ``group`` over
+    the ranks' batches together."""
     p = prob.reshape(-1)
     t = target.reshape(-1).to(prob.dtype)
-    inter = torch.sum(p * t)
-    return 1.0 - (2.0 * inter + smooth) / (torch.sum(p) + torch.sum(t) + smooth)
+    sums = torch.stack([torch.sum(p * t), torch.sum(p), torch.sum(t)])
+    if group is not None:
+        sums = all_reduce_sum(sums, group)
+    inter, sp, st = sums
+    return 1.0 - (2.0 * inter + smooth) / (sp + st + smooth)
 
 
 def softmax_cross_entropy(logits, labels, weight=None):
@@ -91,17 +102,17 @@ def ce_dice(logits, labels):
     return ce + dice_binary(torch.softmax(logits, dim=1)[:, 1], labels)
 
 
-def ce_dice_adapt(logits, labels, log_var):
+def ce_dice_adapt(logits, labels, log_var, group=None):
     """CE + foreground dice with uncertainty weighting (selfloss.py:122-142).
     Foreground probability = sum of the softmax over classes >= 1."""
     ce = softmax_cross_entropy(logits, labels)
     prob_fg = torch.softmax(logits, dim=1)[:, 1:].sum(dim=1)
-    return _adapt(ce + dice_binary(prob_fg, labels > 0), log_var)
+    return _adapt(ce + dice_binary(prob_fg, labels > 0, group=group), log_var)
 
 
-def ce_dice_adapt_weight(logits, labels, weight, log_var):
+def ce_dice_adapt_weight(logits, labels, weight, log_var, group=None):
     """Weighted CE + foreground dice with uncertainty weighting
     (selfloss.py:145-168): the build-segmentation loss of the main model."""
     ce = softmax_cross_entropy(logits, labels, weight)
     prob_fg = torch.softmax(logits, dim=1)[:, 1:].sum(dim=1)
-    return _adapt(ce + dice_binary(prob_fg, labels > 0), log_var)
+    return _adapt(ce + dice_binary(prob_fg, labels > 0, group=group), log_var)

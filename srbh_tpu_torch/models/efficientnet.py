@@ -12,7 +12,9 @@ Drop-connect (training mode only) follows ``srbh_tpu/models/efficientnet.py
 ``floor(keep + u)`` and ``h / keep * mask``, at the block rate
 ``drop_connect_rate * block_idx / total_blocks``. The draws come from the
 ``generator`` passed to ``forward`` (the global generator if none is
-given); their bits differ from the JAX package's PRNG.
+given), or from a ``parallel.data.BatchRows`` that draws the global
+batch and keeps this rank's rows; their bits differ from the JAX package's
+PRNG.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from srbh_tpu_torch.models.layers import TorchBatchNorm
+from srbh_tpu_torch.parallel.data import uniform_rows
 
 # (expand_ratio, kernel, stride, base_channels, base_repeats) per stage (B0)
 _B0_STAGES = (
@@ -131,8 +134,7 @@ class MBConv(nn.Module):
         if self.identity:
             if self.training and self.drop_rate > 0.0:
                 keep = 1.0 - self.drop_rate
-                u = torch.rand((x.shape[0], 1, 1, 1), generator=generator,
-                               device=x.device, dtype=torch.float32)
+                u = uniform_rows((x.shape[0], 1, 1, 1), generator, x.device)
                 h = h / keep * torch.floor(keep + u).to(h.dtype)
             h = h + x
         return h

@@ -16,9 +16,12 @@ Semantics match :class:`srbh_tpu_torch.predict.stitcher.MosaicAccumulator`
 exactly: integer sums, ragged edge windows cut to ``xcount / ycount``,
 ``round(sum / weight) -> uint16`` (float32 here, float64 on the host: the
 sums stay below 2^24, so both quotients round to the same integer) and the
-first class among equal sums (``torch.argmax``, as ``np.argmax``). The
-mesh-sharded ``stitch_tiles_sharded`` is not ported (``ROADMAP.md`` Queue 1
-item 13).
+first class among equal sums (``torch.argmax``, as ``np.argmax``).
+
+:func:`stitch_tiles_sharded` is the mesh form (``_sharded_stitch_fn`` of
+the JAX package): each data rank adds its share of the tiles into a local
+int32 canvas, and one all-reduce sums the canvases; the integer sums make
+it byte-equal to the single-device stitcher.
 """
 from __future__ import annotations
 
@@ -26,8 +29,11 @@ from typing import Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from srbh_tpu_torch import resolve_device
+from srbh_tpu_torch.parallel.collectives import rank, world
+from srbh_tpu_torch.parallel.mesh import DATA_AXIS
 
 
 def _add_tiles(hs, bs, wt, height, build, pos, upscale: int) -> None:
@@ -59,6 +65,31 @@ def stitch_tiles(height_u16, build_u16, pos, canvas_hw: Tuple[int, int],
     bs = torch.zeros((h, w, build_u16.shape[-1]), dtype=torch.int32, device=dev)
     wt = torch.zeros((h, w), dtype=torch.int32, device=dev)
     _add_tiles(hs, bs, wt, height_u16, build_u16, pos, upscale)
+    return hs, bs, wt
+
+
+def stitch_tiles_sharded(height_u16, build_u16, pos,
+                         canvas_hw: Tuple[int, int], mesh, upscale: int = 4):
+    """:func:`stitch_tiles` over the mesh's data ranks: every rank passes
+    the same tile list (on the host or on its device) and gets the whole
+    int32 canvases on its device. Rank ``r`` of ``W`` adds tiles ``r, r +
+    W, ...`` into its own canvases, which one all-reduce per canvas then
+    sums. A rank may hold one tile fewer than another, so the JAX form's
+    padding with zero-count windows (equal shards for ``shard_map``) is not
+    needed."""
+    group = mesh.get_group(DATA_AXIS)
+    r, n = rank(group), world(group)
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if mesh.device_type == "cuda" else torch.device("cpu"))
+    h, w = canvas_hw
+    hs = torch.zeros((h, w), dtype=torch.int32, device=dev)
+    bs = torch.zeros((h, w, build_u16.shape[-1]), dtype=torch.int32, device=dev)
+    wt = torch.zeros((h, w), dtype=torch.int32, device=dev)
+    _add_tiles(hs, bs, wt, height_u16[r::n], build_u16[r::n],
+               np.asarray(pos)[r::n], upscale)
+    if n > 1:
+        for canvas in (hs, bs, wt):
+            dist.all_reduce(canvas, group=group)
     return hs, bs, wt
 
 

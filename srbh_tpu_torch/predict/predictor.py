@@ -1,6 +1,6 @@
 """City-scale sliding-window height/build prediction.
 
-Counterpart of ``srbh_tpu/predict/predictor.py`` (no mesh), twin of
+Counterpart of ``srbh_tpu/predict/predictor.py``, twin of
 predict_realesanet_feature_globe.py:68-233: for each city, iterate the
 WSF-valid fishnet grids, run the frozen-SR + height model on batches of
 64x64 windows on the card, blend the overlaps, and write
@@ -13,6 +13,14 @@ worker processes read the windows; the mosaic is stitched on the host
 when its canvases fit the budget). The last batch of a city is run as it
 is, shorter than the others (the JAX package pads it to one shape for
 ``jit``). A city is skipped when both of its tifs exist.
+
+``make_city_step(mesh=...)`` is the step's mesh form over a process group
+(``parallel.mesh.make_mesh``): ``partition="data"`` splits the batch over
+the data ranks, ``"spatial"`` also splits the RRDB trunk's rows over the
+model ranks (``parallel/spatial.py``; the height model then runs on the
+gathered features); either returns the whole batch's outputs on every
+rank. ``predict/device_stitcher.py:stitch_tiles_sharded`` is its
+stitcher.
 """
 from __future__ import annotations
 
@@ -26,6 +34,13 @@ import torch
 from srbh_tpu_torch import resolve_device
 from srbh_tpu_torch.data.grid import GridImageDataset
 from srbh_tpu_torch.data.pipeline import DataLoader
+from srbh_tpu_torch.parallel import mesh as pmesh
+from srbh_tpu_torch.parallel.collectives import world
+from srbh_tpu_torch.parallel.spatial import (
+    gather_rows,
+    spatial_parallel,
+    split_rows,
+)
 from srbh_tpu_torch.predict.device_stitcher import DeviceMosaicAccumulator
 from srbh_tpu_torch.predict.stitcher import MosaicAccumulator
 from srbh_tpu_torch.predict.writers import array2raster, array2raster_rio
@@ -72,23 +87,54 @@ def postprocess(height, build):
 
 
 def make_city_step(model, sr_model, rgb_idx=(0, 1, 2), dtype=torch.bfloat16,
-                   device=None):
+                   device=None, mesh=None, partition: str = "data"):
     """Batch step: NHWC image (B, 64, 64, 8) -> (uint16 height in decimetres
     (B, 256, 256), uint8 build softmax x 255 (B, 256, 256, C)), the
     quantised outputs of :func:`serving_outputs` in compute type ``dtype``.
     Both models move to ``device`` (``None`` is the card) in eval mode, and
     the step runs under ``torch.inference_mode()``. Outputs stay on the
-    device."""
+    device.
+
+    With ``mesh`` every rank passes the same whole batch and gets the whole
+    batch's outputs: ``partition="data"`` runs each data rank's
+    ``shard_batch`` rows; ``"spatial"`` also runs the RRDB trunk on bands of
+    the rows over the model ranks, for fewer, larger windows whose trunk
+    activations outgrow one card. The batch must divide over the data
+    ranks, and the rows over the model ranks, or the step raises."""
     dev = resolve_device(device)
     model = model.eval().to(dev)
     sr_model = sr_model.eval().to(dev)
+    if partition not in ("data", "spatial"):
+        raise ValueError(f"partition {partition!r}: 'data' or 'spatial'")
+    if mesh is None:
+        def step(image):
+            x = torch.as_tensor(image, device=dev).permute(0, 3, 1, 2).float()
+            with torch.inference_mode():
+                return serving_outputs(model, sr_model, x, rgb_idx, dtype)[2:]
 
-    def step(image):
+        return step
+    data = mesh.get_group(pmesh.DATA_AXIS)
+    rows = mesh.get_group(pmesh.MODEL_AXIS)
+    banded = spatial_parallel(sr_model, rows) if partition == "spatial" else None
+
+    def mesh_step(image):
         x = torch.as_tensor(image, device=dev).permute(0, 3, 1, 2).float()
+        if partition == "spatial" and x.shape[2] % world(rows):
+            raise ValueError(f"{x.shape[2]} rows do not divide over "
+                             f"{world(rows)} model ranks")
+        x = pmesh.shard_batch(x, data)
         with torch.inference_mode():
-            return serving_outputs(model, sr_model, x, rgb_idx, dtype)[2:]
+            if banded is None:
+                h, b = serving_outputs(model, sr_model, x, rgb_idx, dtype)[2:]
+            else:
+                with compute_type(dev, dtype):
+                    band = banded(split_rows(x[:, list(rgb_idx)], rows),
+                                  features_only=True)
+                    outs = model(x, gather_rows(band, rows))
+                h, b = postprocess(outs[0], outs[1])[2:]
+        return pmesh.gather_batch(h, data), pmesh.gather_batch(b, data)
 
-    return step
+    return mesh_step
 
 
 def _canvas_bytes(width: int, height: int, n_classes: int,

@@ -9,6 +9,12 @@ reference's names), ``log_vars`` and ``optimizer`` (the Adam state, so a
 resume continues exactly). It is written to ``<path>.tmp`` and renamed into
 place, synchronously.
 
+In a process group every rank calls :func:`save_checkpoint` and the first
+writes: an FSDP2 state's sharded parameters and moments are gathered whole
+first (each a collective), so the file has the same form as a single
+process's, and :func:`restore_into_state` cuts a whole file back into the
+shards. A checkpoint moves between FSDP2, DDP and one process either way.
+
 :func:`load_checkpoint` also reads the JAX package's ``.npz`` checkpoints
 (``srbh_tpu.train.convert.save_tree_npz``, read by
 ``convert.load_tree_npz``) through ``convert.train_state_from_jax``, of the
@@ -29,8 +35,10 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from srbh_tpu_torch import convert
+from srbh_tpu_torch.train.state import shard_like
 
 
 def save_checkpoint(logdir: str, state, epoch: int, best_rmse: float,
@@ -41,17 +49,32 @@ def save_checkpoint(logdir: str, state, epoch: int, best_rmse: float,
         "epoch": int(epoch),
         "best_rmse": float(best_rmse),
         "step": int(state.step),
-        "model": state.model.state_dict(),
+        "model": whole(state.model.state_dict()),
         "log_vars": state.log_vars.detach().cpu().clone(),
-        "optimizer": state.optimizer.state_dict(),
+        "optimizer": whole(state.optimizer.state_dict()),
     }
     path = os.path.join(logdir, "checkpoint")
-    _save(payload, path)
-    if snapshot_every and epoch % snapshot_every == 0:
-        shutil.copyfile(path, os.path.join(logdir, f"checkpoint{epoch}"))
-    if is_best:
-        shutil.copyfile(path, os.path.join(logdir, "model_best"))
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        _save(payload, path)
+        if snapshot_every and epoch % snapshot_every == 0:
+            shutil.copyfile(path, os.path.join(logdir, f"checkpoint{epoch}"))
+        if is_best:
+            shutil.copyfile(path, os.path.join(logdir, "model_best"))
+    if dist.is_initialized():
+        dist.barrier()
     return path
+
+
+def whole(tree):
+    """A state dict (nested dicts and lists) with each FSDP2 ``DTensor``
+    gathered whole (a collective: every rank calls it alike)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(tree, dict):
+        return {k: whole(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [whole(v) for v in tree]
+    return tree.full_tensor() if isinstance(tree, DTensor) else tree
 
 
 def _save(payload: dict, path: str) -> None:
@@ -127,11 +150,20 @@ def _payload_from_reference(payload: dict) -> dict:
 
 def restore_into_state(state, payload: dict) -> None:
     """Load a payload into ``state``: model, log-vars (kept when the payload
-    has none), step, and the optimizer state if present."""
-    state.model.load_state_dict(payload["model"])
+    has none), step, and the optimizer state if present; whole tensors are
+    cut to an FSDP2 state's shards."""
+    own = state.model.state_dict()
+    state.model.load_state_dict({k: shard_like(own[k], v) if k in own else v
+                                 for k, v in payload["model"].items()})
     if payload.get("log_vars") is not None:
         with torch.no_grad():
             state.log_vars.copy_(torch.as_tensor(payload["log_vars"]))
     state.step = int(payload.get("step", 0))
-    if payload.get("optimizer") is not None:
-        state.optimizer.load_state_dict(payload["optimizer"])
+    opt = payload.get("optimizer")
+    if opt is not None:
+        params = [p for g in state.optimizer.param_groups for p in g["params"]]
+        opt = {"param_groups": opt["param_groups"], "state": {
+            i: {k: v if k == "step" else shard_like(params[int(i)], v)
+                for k, v in st.items()}
+            for i, st in opt["state"].items()}}
+        state.optimizer.load_state_dict(opt)

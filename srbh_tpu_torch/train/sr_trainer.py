@@ -25,6 +25,16 @@ G. ``dtype=torch.bfloat16`` runs the three networks under ``torch.autocast``
 (parameters, USM, losses, the spectral norm's iteration and Adam stay
 float32). Batches are NHWC (``lq`` (N, h, w, C), ``gt`` (N, 4h, 4w, C)), as
 the pair dataset gives them.
+
+``make_step(group=...)`` is the data-parallel step (the reference's recipe
+is multi-GPU DDP): each rank holds its rows of the global batch, and G's
+gradients are averaged over the group after G's backward, D's after D's,
+each in one flattened all-reduce (``parallel.data.average_gradients``).
+DDP's reducer fits neither half: G's pass runs D frozen, and D's runs D
+twice before one backward. Every loss is a mean over equal local batches,
+so the averages are the global batch's gradients; the spectral norms'
+``u`` read only the weights, and the EMA only G, so both stay equal on
+every rank. The metrics are the global batch's.
 """
 from __future__ import annotations
 
@@ -41,6 +51,7 @@ from srbh_tpu_torch.models.layers import init_weights
 from srbh_tpu_torch.models.rrdbnet import RRDBNet
 from srbh_tpu_torch.models.vgg import VGG19Features
 from srbh_tpu_torch.ops.usm import usm_sharp
+from srbh_tpu_torch.parallel.data import average_gradients, mean_over
 
 
 def multistep_lr(base_lr: float, milestones=(400000,), gamma: float = 0.5,
@@ -191,12 +202,13 @@ class RealESRGANTrainer:
             torch.backends.cudnn.benchmark = True
         return scope
 
-    def make_step(self):
+    def make_step(self, group=None):
         """``step(state, lq, gt) -> metrics``: one update of ``state`` in
         place; the metrics (``l_g_pix``, ``l_g_percep``, ``l_g_gan``,
         ``l_g_total``, ``l_d_real``, ``l_d_fake``, ``out_d_real``,
         ``out_d_fake``) stay on the device. On a card the step runs with
-        cuDNN's autotuning on (:meth:`_autotuned`)."""
+        cuDNN's autotuning on (:meth:`_autotuned`). ``group``: the
+        data-parallel step over that process group (module docstring)."""
         if self.perceptual and self.vgg is None:
             raise RuntimeError("make_step before init(): init() builds the "
                                "perceptual VGG19")
@@ -233,8 +245,9 @@ class RealESRGANTrainer:
             g_total = l_pix + l_percep + l_gan
             state.opt_g.zero_grad(set_to_none=True)
             g_total.backward()
-            for group in state.opt_g.param_groups:
-                group["lr"] = lr
+            average_gradients(net_g.parameters(), group)
+            for pg in state.opt_g.param_groups:
+                pg["lr"] = lr
             state.opt_g.step()
 
             # the discriminator, two forwards that each store their norms
@@ -246,8 +259,9 @@ class RealESRGANTrainer:
             l_fake = gan_loss(fake_pred, False, "vanilla", is_disc=True)
             state.opt_d.zero_grad(set_to_none=True)
             (l_real + l_fake).backward()
-            for group in state.opt_d.param_groups:
-                group["lr"] = lr
+            average_gradients(net_d.parameters(), group)
+            for pg in state.opt_d.param_groups:
+                pg["lr"] = lr
             state.opt_d.step()
 
             with torch.no_grad():
@@ -256,7 +270,7 @@ class RealESRGANTrainer:
                 torch._foreach_add_(ema, list(net_g.parameters()),
                                     alpha=1 - decay)
             state.step += 1
-            return {k: v.detach() for k, v in (
+            return {k: mean_over(v, group) for k, v in (
                 ("l_g_pix", l_pix), ("l_g_percep", l_percep), ("l_g_gan", l_gan),
                 ("l_g_total", g_total), ("l_d_real", l_real),
                 ("l_d_fake", l_fake), ("out_d_real", real_pred.mean()),

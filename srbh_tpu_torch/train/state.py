@@ -15,6 +15,13 @@ Counterpart of ``srbh_tpu/train/state.py`` (train.py:170-179):
 BatchNorm statistics live in the model's buffers, so unlike the JAX state
 this one holds no ``batch_stats``. The frozen RRDBNet it trains against may
 ride along as ``sr_model``; it is in no optimizer group.
+
+Under FSDP2 the state is built after ``parallel.mesh.shard_state_fsdp``
+has sharded the model: Adam then keeps each moment in its parameter's
+shards, and :meth:`TrainState.load_moments` cuts full moments to them. The
+log-vars stay whole on every rank. Adam's default takes its foreach kernels
+only for plain tensors and steps FSDP2's ``DTensor`` parameters one at a
+time; the state asks for the foreach kernels for them.
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ from typing import Mapping, Optional
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 
 class TrainState:
@@ -37,10 +45,12 @@ class TrainState:
         lv = (torch.zeros(n_log_vars) if log_vars is None
               else torch.as_tensor(log_vars, dtype=torch.float32))
         self.log_vars = nn.Parameter(lv.clone().to(dev))
+        params = list(model.parameters())
+        sharded = any(isinstance(p, DTensor) for p in params)
         self.optimizer = torch.optim.Adam(
-            [{"params": list(model.parameters()), "lr": lr},
+            [{"params": params, "lr": lr},
              {"params": [self.log_vars], "lr": lr}],
-            lr=lr, weight_decay=weight_decay)
+            lr=lr, weight_decay=weight_decay, foreach=True if sharded else None)
         self.step = 0
 
     def set_learning_rate(self, lr: float) -> None:
@@ -73,8 +83,20 @@ class TrainState:
 
     @staticmethod
     def _adam_state(p, exp_avg, exp_avg_sq, step) -> dict:
-        like = dict(device=p.device, dtype=p.dtype)
         return {"step": torch.tensor(float(step), dtype=torch.float32),
-                "exp_avg": torch.as_tensor(exp_avg).to(**like).reshape(p.shape),
-                "exp_avg_sq": torch.as_tensor(exp_avg_sq).to(**like)
-                .reshape(p.shape)}
+                "exp_avg": shard_like(p, exp_avg),
+                "exp_avg_sq": shard_like(p, exp_avg_sq)}
+
+
+def shard_like(p: torch.Tensor, full) -> torch.Tensor:
+    """``full`` (a whole tensor or array of ``p``'s shape) on ``p``'s device
+    and dtype, and cut to ``p``'s shards when ``p`` is an FSDP2 ``DTensor``
+    (each rank takes its own shard of its own copy: no communication)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    t = torch.as_tensor(full).to(device=p.device, dtype=p.dtype)
+    t = t.reshape(p.shape)
+    if isinstance(p, DTensor):
+        return distribute_tensor(t, p.device_mesh, p.placements,
+                                 src_data_rank=None)
+    return t

@@ -14,6 +14,16 @@ Entries are moved to the step's device (``non_blocking`` from pinned host
 memory). Outputs stay on the device. With ``device_aug`` a batch is only
 ``image`` and ``height`` (augmentation and targets run in the step), and
 with ``norm`` also only raw ``s2`` / ``s1`` in place of ``image``.
+
+With a data ``group`` (``make_train_step(group=...)``) each rank holds its
+:func:`~srbh_tpu_torch.parallel.mesh.shard_batch` rows of the global batch
+and the step keeps the global batch's semantics, as the JAX step does under
+GSPMD: BatchNorm over the global batch
+(``parallel.data.global_batchnorm``), one dice over the global batch, the
+drop-connect and augmentation draws of each row's global index, the
+model's gradients averaged by DDP (or by FSDP2, for a model
+``parallel.mesh.shard_state_fsdp`` wrapped), the log-vars' gradient
+averaged, and the metrics the global batch's.
 """
 from __future__ import annotations
 
@@ -36,6 +46,13 @@ from srbh_tpu_torch.ops.device_aug import (
     draw_augment,
 )
 from srbh_tpu_torch.ops.hierarchy import DEFAULT_HIR, build_hierarchy_lut
+from srbh_tpu_torch.parallel.collectives import rank, world
+from srbh_tpu_torch.parallel.data import (
+    BatchRows,
+    average_gradients,
+    global_batchnorm,
+    mean_over,
+)
 
 
 def _compute(dev: torch.device, dtype: torch.dtype):
@@ -71,12 +88,13 @@ def step_seed(seed: int, step: int, *tag: int) -> int:
     return int(np.random.SeedSequence((seed, *tag, step)).generate_state(1)[0])
 
 
-def _augment(b, dev, seed, step, norm, lut, cw, isaggre, ishir):
+def _augment(b, dev, seed, step, norm, lut, cw, isaggre, ishir, rows=(0, 1)):
     """The batch the model trains on, from a device-aug batch: normalise the
     raw DNs (``norm``; in float64, rounded to float32, as the host pipeline
     does, so the batch is bit-equal to a host-normalised one), augment, clip
     to [0, 1] (``norm``: the host clips after augmenting), then build the
-    targets."""
+    targets. ``rows`` ``(r, n)``: the batch is rows ``r, r + n, ...`` of a
+    global batch, and gets those rows' draws."""
     if norm is not None:
         image = torch.cat([((b[k].double() - norm[f"{k}_off"])
                             / norm[f"{k}_scale"]).float()
@@ -84,7 +102,9 @@ def _augment(b, dev, seed, step, norm, lut, cw, isaggre, ishir):
     else:
         image = b["image"].float()
     gen = torch.Generator(device=dev).manual_seed(step_seed(seed, step, AUG_TAG))
-    img, height = augment_batch(image, b["height"], draw_augment(len(image), gen))
+    r, n = rows
+    draws = {k: v[r::n] for k, v in draw_augment(len(image) * n, gen).items()}
+    img, height = augment_batch(image, b["height"], draws)
     if norm is not None:
         img = img.clamp(0, 1)
     if ishir:
@@ -98,7 +118,8 @@ def _augment(b, dev, seed, step, norm, lut, cw, isaggre, ishir):
 def make_train_step(model, sr_model, rgb_idx=(0, 1, 2), isaggre: bool = True,
                     seed: int = 0, device_aug: bool = False, hir=None,
                     class_weight=None, norm=None, ishir: bool = True,
-                    dtype: torch.dtype = torch.float32, device=None):
+                    dtype: torch.dtype = torch.float32, device=None,
+                    group=None):
     """Build the aggre+weight train step (train.py:225-271):
     ``step(state, batch, lr) -> {"loss", "rmse", "log_vars"}``, updating
     ``state`` (a :class:`~srbh_tpu_torch.train.state.TrainState` over
@@ -124,6 +145,12 @@ def make_train_step(model, sr_model, rgb_idx=(0, 1, 2), isaggre: bool = True,
 
     ``step.forward_loss(state, batch) -> (loss, rmse)`` is the step's
     forward alone (``tools/train_diag.py`` times it under ``no_grad``).
+
+    ``group`` (a data process group; ``None``: one process) makes the step
+    data-parallel (the module docstring): the model's BatchNorms become
+    global ones, and the model runs under DDP over ``group`` unless FSDP2
+    already wraps it. ``loss`` and ``rmse`` are then the global batch's on
+    every rank; ``forward_loss`` gives this rank's loss (its dice global).
     """
     if norm is not None and not device_aug:
         raise ValueError("norm (in-step normalisation) requires device_aug")
@@ -134,6 +161,19 @@ def make_train_step(model, sr_model, rgb_idx=(0, 1, 2), isaggre: bool = True,
     if sr_model is not None:
         sr_model.eval().to(dev).requires_grad_(False)
     rgb = list(rgb_idx)
+    rows = (rank(group), world(group)) if group is not None else (0, 1)
+    net = model
+    if group is not None:
+        from torch.distributed.fsdp import FSDPModule
+        from torch.nn.parallel import DistributedDataParallel
+
+        global_batchnorm(model, group)
+        if not isinstance(model, FSDPModule):
+            ids = ([dev.index if dev.index is not None
+                    else torch.cuda.current_device()]
+                   if dev.type == "cuda" else None)
+            net = DistributedDataParallel(model, device_ids=ids,
+                                          process_group=group)
     keys = ["image", "height", "build", "weight"]
     if isaggre:
         keys += ["height_aggre", "weight_aggre"]
@@ -155,14 +195,17 @@ def make_train_step(model, sr_model, rgb_idx=(0, 1, 2), isaggre: bool = True,
     def forward_loss(state, batch):
         b = _to_device(batch, keys, dev)
         if device_aug:
-            b = _augment(b, dev, seed, state.step, norm, lut, cw, isaggre, ishir)
+            b = _augment(b, dev, seed, state.step, norm, lut, cw, isaggre,
+                         ishir, rows)
         image = _nchw(b["image"])
         height_t = b["height"].float()
         model.train()
         gen = torch.Generator(device=dev).manual_seed(step_seed(seed, state.step))
+        if group is not None:
+            gen = BatchRows(gen, *rows)
         with _compute(dev, dtype):
             fea = _features(sr_model, image, rgb)
-            outs = model(image, *fea, generator=gen)
+            outs = net(image, *fea, generator=gen)
         lv = state.log_vars
         height = outs[0][:, 0].float()
         build = outs[1].float()
@@ -172,18 +215,19 @@ def make_train_step(model, sr_model, rgb_idx=(0, 1, 2), isaggre: bool = True,
                     + mse_adapt_weight(aggre, b["height_aggre"],
                                        b["weight_aggre"], lv[1])
                     + ce_dice_adapt_weight(build, b["build"], b["weight"],
-                                           lv[2]))
+                                           lv[2], group))
         else:
             loss = (mse_adapt(height, height_t, lv[0])
-                    + ce_dice_adapt(build, b["build"], lv[1]))
-        rmse = torch.sqrt(torch.mean((height.detach() - height_t) ** 2))
-        return loss, rmse
+                    + ce_dice_adapt(build, b["build"], lv[1], group))
+        mse = torch.mean((height.detach() - height_t) ** 2)
+        return loss, torch.sqrt(mean_over(mse, group))
 
     def step(state, batch, lr):
         loss, rmse = forward_loss(state, batch)
         loss.backward()
+        average_gradients([state.log_vars], group)
         state.apply_gradients(lr)
-        return {"loss": loss.detach(), "rmse": rmse,
+        return {"loss": mean_over(loss, group), "rmse": rmse,
                 "log_vars": state.log_vars.detach().clone()}
 
     step.forward_loss = forward_loss
@@ -198,9 +242,12 @@ def _eval_heads(model, sr_model, rgb, dev, dtype, image):
 
 
 def make_eval_step(model, sr_model, rgb_idx=(0, 1, 2),
-                   dtype: torch.dtype = torch.float32, device=None):
+                   dtype: torch.dtype = torch.float32, device=None,
+                   group=None):
     """Validation step (train.py:315-344): ``step(batch) -> {"loss": mse,
-    "rmse": sqrt(mse)}`` on the height head, models in eval mode."""
+    "rmse": sqrt(mse)}`` on the height head, models in eval mode. With a
+    data ``group`` the batch is this rank's rows and both are the global
+    batch's."""
     dev = resolve_device(device)
     model.to(dev)
     if sr_model is not None:
@@ -210,7 +257,8 @@ def make_eval_step(model, sr_model, rgb_idx=(0, 1, 2),
     def step(batch):
         outs = _eval_heads(model, sr_model, rgb, dev, dtype, batch["image"])
         target = torch.as_tensor(batch["height"]).to(dev).float()
-        mse = torch.mean((outs[0][:, 0].float() - target) ** 2)
+        mse = mean_over(torch.mean((outs[0][:, 0].float() - target) ** 2),
+                        group)
         return {"loss": mse, "rmse": torch.sqrt(mse)}
 
     return step

@@ -17,7 +17,17 @@ Counterparts of ``srbh_tpu/train/trainer.py``:
   .txt`` (the mean of per-batch RMSEs), ``*_seg.csv`` and ``*_he.csv``, and
   with ``issave`` each tile's predicted height and classes as GeoTIFFs.
 
-Not ported yet (``ROADMAP.md``): FSDP and ``remat``; their flags raise
+In a process group (``torchrun``; ``parallel.mesh.initialize_distributed``)
+:func:`main` trains data-parallel when the world size divides the batch,
+as the JAX trainer does on a mesh: each rank loads its shard of the tiles
+(``shard_index`` / ``num_shards``, batches of ``batch_size / W``, ragged
+tails dropped) and runs the DDP step over the global batch
+(``train/steps.py``); ``--fsdp`` shards the height model and the frozen
+RRDBNet with FSDP2 (``parallel.mesh.shard_state_fsdp``). Validation runs
+sharded on every rank with the global batch's metrics; only rank 0 prints
+and writes.
+
+Not ported yet (``ROADMAP.md``): ``remat``; its flag raises
 (``_REFUSED``). ``save_opt_state`` and ``async_checkpoint`` are accepted and
 change nothing: every checkpoint holds the optimizer state (exact resume)
 and is written synchronously.
@@ -29,6 +39,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from srbh_tpu_torch import convert, resolve_device
 from srbh_tpu_torch.data.dataset import S12GlobeDataset
@@ -50,6 +61,9 @@ from srbh_tpu_torch.models.height_model import (
 )
 from srbh_tpu_torch.models.layers import init_weights
 from srbh_tpu_torch.models.rrdbnet import RRDBNet
+from srbh_tpu_torch.parallel import mesh as pmesh
+from srbh_tpu_torch.parallel.collectives import rank, world
+from srbh_tpu_torch.parallel.data import global_batchnorm
 from srbh_tpu_torch.train.checkpoint import (
     load_checkpoint,
     restore_into_state,
@@ -65,7 +79,7 @@ from srbh_tpu_torch.train.steps import (
 )
 
 # flags of TrainConfig the port refuses, and the ROADMAP.md item they wait for
-_REFUSED = {"fsdp": "Queue 1 item 13", "remat": "Queue 1 item 15"}
+_REFUSED = {"remat": "Queue 1 item 15"}
 
 
 def _check_supported(cfg: TrainConfig) -> None:
@@ -137,9 +151,12 @@ def make_loader(cfg: TrainConfig, listname: str, aug: bool, isaggre: bool,
                 ishir: bool, num_sample: int = 0, shuffle: bool = True,
                 preweight: Optional[str] = None, device=None,
                 device_aug: bool = False, device_norm: bool = False,
-                batch_size: Optional[int] = None) -> DataLoader:
+                batch_size: Optional[int] = None, shard_index: int = 0,
+                num_shards: int = 1) -> DataLoader:
     """A loader whose batches arrive on ``device`` (``None`` is the card),
-    of ``batch_size`` samples (``None``: ``cfg.batch_size``)."""
+    of ``batch_size`` samples (``None``: ``cfg.batch_size``); with
+    ``num_shards`` > 1 it reads shard ``shard_index`` and drops a ragged
+    last batch."""
     ds = S12GlobeDataset(
         os.path.join(cfg.datapath, listname), cfg.datapath,
         datastats=cfg.datastats, normmethod="minmax", datarange=(0, 1),
@@ -150,17 +167,48 @@ def make_loader(cfg: TrainConfig, listname: str, aug: bool, isaggre: bool,
     return DataLoader(ds, batch_size=batch_size or cfg.batch_size,
                       shuffle=shuffle,
                       num_workers=cfg.num_workers, seed=cfg.seed,
-                      device_put=True, device=device)
+                      device_put=True, device=device,
+                      drop_last=num_shards > 1, shard_index=shard_index,
+                      num_shards=num_shards)
+
+
+def _quiet(*args, **kwargs) -> None:
+    """``print`` of the ranks after the first."""
 
 
 def main(cfg: TrainConfig, writer=None,
-         max_steps_per_epoch: Optional[int] = None, device=None) -> TrainState:
+         max_steps_per_epoch: Optional[int] = None, device=None,
+         fsdp: bool = False) -> TrainState:
     """Train per ``cfg`` on ``device`` (``None`` is the card; without one
     this raises unless ``device="cpu"``). Returns the final train state,
     with the frozen SR model as its ``sr_model``. ``max_steps_per_epoch``
-    cuts every epoch's training and validation loops."""
+    cuts every epoch's training and validation loops.
+
+    A process group of more than one rank trains data-parallel over its
+    ranks, and its size must divide ``batch_size``; ``fsdp`` (or
+    ``cfg.fsdp``) also shards the models with FSDP2, and needs a process
+    group (``torchrun``, or ``parallel.mesh.initialize_distributed``):
+    without one it raises."""
     dev = resolve_device(device)
     _check_supported(cfg)
+    fsdp = fsdp or cfg.fsdp
+    n = world()
+    if cfg.batch_size % n:
+        raise ValueError(f"data parallelism over {n} ranks requires "
+                         f"batch_size divisible by the world size (got "
+                         f"batch_size={cfg.batch_size}); pick a multiple")
+    data_parallel = fsdp or n > 1
+    if data_parallel and not dist.is_initialized():
+        raise RuntimeError("fsdp needs a process group: run under torchrun, "
+                           "or call srbh_tpu_torch.parallel.mesh."
+                           "initialize_distributed first")
+    mesh = pmesh.make_mesh() if data_parallel else None
+    group = mesh.get_group(pmesh.DATA_AXIS) if mesh is not None else None
+    n_data = world(group) if group is not None else 1
+    shard = dict(shard_index=rank(group), num_shards=n_data,
+                 batch_size=cfg.batch_size // n_data) if n_data > 1 else {}
+    say = print if rank() == 0 else _quiet
+    writer = writer if rank() == 0 else None
     np.random.seed(cfg.seed)
     torch.manual_seed(cfg.seed)
     device_aug = cfg.device_aug or cfg.device_norm
@@ -169,26 +217,32 @@ def main(cfg: TrainConfig, writer=None,
                               num_sample=cfg.num_sample,
                               preweight=cfg.preweight, device=dev,
                               device_aug=device_aug,
-                              device_norm=cfg.device_norm)
+                              device_norm=cfg.device_norm, **shard)
     valloader = make_loader(cfg, cfg.vallist, aug=False, isaggre=False,
                             ishir=False, num_sample=cfg.num_sample // 2,
-                            shuffle=False, device=dev)
+                            shuffle=False, device=dev, **shard)
 
     model, sr = build_models(cfg)
     if sr is not None and not load_sr_weights(cfg, sr):
-        print("=> no SR checkpoint found; using random frozen features")
+        say("=> no SR checkpoint found; using random frozen features")
     start_epoch, best_rmse = 0, float("inf")
     payload = load_checkpoint(os.path.join(cfg.logdir, "checkpoint"))
     # only a fresh run starts its encoder from ImageNet weights: a resumed
     # run takes the encoder from its checkpoint
     if payload is None and cfg.encoder_weights:
         load_encoder_weights(cfg, model)
-        print(f"=> encoder initialised from {cfg.encoder_weights}")
+        say(f"=> encoder initialised from {cfg.encoder_weights}")
     elif payload is None:
-        print("WARNING: training starts from a RANDOM encoder — the "
-              "reference always uses ImageNet weights (mymodels.py:242); "
-              "pass --encoder_weights.")
+        say("WARNING: training starts from a RANDOM encoder — the "
+            "reference always uses ImageNet weights (mymodels.py:242); "
+            "pass --encoder_weights.")
     model.to(dev)
+    if group is not None:
+        global_batchnorm(model, group)
+    if fsdp:
+        pmesh.shard_state_fsdp(model, mesh)
+        if sr is not None:
+            pmesh.shard_state_fsdp(sr.to(dev).requires_grad_(False), mesh)
     state = TrainState(model, n_log_vars=3 if cfg.isaggre else 2, lr=cfg.lr,
                        weight_decay=cfg.weight_decay, sr_model=sr)
     if payload is not None:
@@ -199,7 +253,7 @@ def main(cfg: TrainConfig, writer=None,
         # shuffle order and augmentation draws of an uninterrupted run
         trainloader.epoch = start_epoch
         valloader.epoch = start_epoch
-        print(f"=> resumed epoch {start_epoch}")
+        say(f"=> resumed epoch {start_epoch}")
 
     dtype = torch.bfloat16 if cfg.bf16 else torch.float32
     ds = trainloader.dataset
@@ -210,8 +264,9 @@ def main(cfg: TrainConfig, writer=None,
                                  seed=cfg.seed, device_aug=device_aug,
                                  hir=cfg.hir, class_weight=ds.heightweight,
                                  norm=norm, ishir=cfg.ishir, dtype=dtype,
-                                 device=dev)
-    eval_step = make_eval_step(model, sr, cfg.rgbseq, dtype=dtype, device=dev)
+                                 device=dev, group=group)
+    eval_step = make_eval_step(model, sr, cfg.rgbseq, dtype=dtype, device=dev,
+                               group=group)
     os.makedirs(cfg.logdir, exist_ok=True)
 
     for epoch in range(start_epoch + 1, cfg.maxepoch + 1):
@@ -222,12 +277,14 @@ def main(cfg: TrainConfig, writer=None,
             if max_steps_per_epoch is not None and i >= max_steps_per_epoch:
                 break
             m = train_step(state, batch, lr)
-            train_m.append((m["loss"], m["rmse"], batch["height"].shape[0]))
+            train_m.append((m["loss"], m["rmse"],
+                            batch["height"].shape[0] * n_data))
         for i, batch in enumerate(valloader):
             if max_steps_per_epoch is not None and i >= max_steps_per_epoch:
                 break
             m = eval_step(batch)
-            val_m.append((m["loss"], m["rmse"], batch["image"].shape[0]))
+            val_m.append((m["loss"], m["rmse"],
+                          batch["image"].shape[0] * n_data))
         losses, rmses = AverageMeter(), AverageMeter()
         val_losses, val_rmses = AverageMeter(), AverageMeter()
         for meters, rows in (((losses, rmses), train_m),
@@ -239,17 +296,17 @@ def main(cfg: TrainConfig, writer=None,
 
         if val_rmses.count == 0:
             # an empty validation would read rmse 0.0 and pin model_best
-            print("warning: validation produced no batches; "
-                  "val rmse not comparable this epoch")
+            say("warning: validation produced no batches; "
+                "val rmse not comparable this epoch")
             is_best = False
         else:
             is_best = val_rmses.avg < best_rmse
             best_rmse = min(val_rmses.avg, best_rmse)
         save_checkpoint(cfg.logdir, state, epoch, best_rmse,
                         snapshot_every=5, is_best=is_best)
-        print(f"epoch {epoch}: lr {lr:.6f} train loss {losses.avg:.3f} "
-              f"rmse {rmses.avg:.3f} | val rmse {val_rmses.avg:.3f}"
-              f"{' *best*' if is_best else ''}")
+        say(f"epoch {epoch}: lr {lr:.6f} train loss {losses.avg:.3f} "
+            f"rmse {rmses.avg:.3f} | val rmse {val_rmses.avg:.3f}"
+            f"{' *best*' if is_best else ''}")
         if writer is not None:
             writer.add_scalar("lr", lr, epoch)
             writer.add_scalar("train/loss", losses.avg, epoch)

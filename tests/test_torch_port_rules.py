@@ -71,7 +71,9 @@ def test_port_has_the_slice_modules():
                  "tools.predict_stress", "tools.ref_bench",
                  "tools.export_model", "data.crs", "data.datalist",
                  "data.stats", "data.legacy", "data.raster",
-                 "tools.preprocess", "tools.products", "native"):
+                 "tools.preprocess", "tools.products", "native",
+                 "parallel.collectives", "parallel.mesh", "parallel.data",
+                 "parallel.spatial", "parallel.tensor", "parallel.pipeline"):
         assert f"srbh_tpu_torch.{name}" in mods
 
 
@@ -155,6 +157,10 @@ def _entry_points():
         "calculate_lpips": lambda: learned.calculate_lpips(
             img, img, LPIPS().state_dict()),
         "StepTimer": lambda: StepTimer(1),
+        "dryrun_multichip": lambda: entry.dryrun_multichip(1),
+        "make_city_step(mesh=...)": lambda: make_city_step(
+            torch.nn.Identity(), torch.nn.Identity(), mesh=object(),
+            partition="spatial"),
     }
 
 
@@ -170,7 +176,9 @@ def _entry_points():
                                   "train.__main__.main",
                                   "swinir_harness.run_folder",
                                   "swinir_harness.main", "calculate_clipscore",
-                                  "calculate_lpips", "StepTimer"])
+                                  "calculate_lpips", "StepTimer",
+                                  "dryrun_multichip",
+                                  "make_city_step(mesh=...)"])
 def test_entry_points_need_a_card_by_default(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
