@@ -106,8 +106,9 @@ its parallel modes:
    ``acc1.txt``; the hand kernel's launches over both (none); ms per step
    of ``train_sr`` in steady state (host stamps as its steps return), eval
    images/s, and the GAN step alone on batches on the card in bfloat16 and
-   float32 through ``tools/sr_train_bench.py``'s ``main`` (tiles/s, peak
-   memory, the device time of one step by kernel);
+   float32, and in float32 with remat (phase 14's layout option), through
+   ``tools/sr_train_bench.py``'s ``main`` (tiles/s, peak memory, the
+   device time of one step by kernel);
 10. the long tail, run after phase 8 and before the GAN: the remaining
    models (HRFuse, HRFuseX2, GeoNet, RefineResidual, the Geo and Refine
    height variants, EDSR, ESPCN, RRDBNetSimple, the three SRRegress
@@ -189,7 +190,22 @@ its parallel modes:
    ``spatial``, byte-equal to the plain step at batch 32, and
    ``stitch_tiles_sharded`` byte-equal to ``stitch_tiles`` on its
    outputs; then ``entry.dryrun_multichip(1)`` (one NCCL process it
-   starts). The hand kernel's launches over the phase (none).
+   starts). The hand kernel's launches over the phase (none);
+14. the layout options, run after phase 13 and before the GAN: each card
+   against the CPU at tiny width (the remat height and GAN steps by phases
+   6 and 9's rules, the fused and int8 trunks, the int8 sums equal, the
+   packed flagship, the dual head); at full width on the card, RRDBNet-23
+   fused against literal, the int8 trunk's SNR against float32, the
+   packed flagship and the dual head against the literal forms at batch
+   32; then once each, with the card's name and power limit, the bench
+   under ``SRBH_BENCH_INT8`` and ``SRBH_BENCH_PACKED``, ``train_bench``
+   with remat (peak memory beside phase 6's plain step; phase 9 times the
+   GAN step with remat beside its plain one, after the GAN shapes'
+   autotuning), ``profile_flagship``'s packed and grouped stages beside
+   phase 11's literal ones, the city CLI with ``SRBH_PACKED=1`` against
+   the literal CLI on phase 7's tiny city, and
+   ``srbh_tpu_torch.examples.quickstart`` on the card. The hand kernel's
+   launches over the phase (none).
 
 TF32 is off for the whole run (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32`` are False), so float32 means
@@ -655,7 +671,8 @@ def loss_grads_f64(model, sr, b):
     return {n: p.grad for n, p in m.named_parameters()}
 
 
-def train_tiny_card_vs_cpu(label="make_train_step", batch=None, **step_kw):
+def train_tiny_card_vs_cpu(label="make_train_step", batch=None, remat=False,
+                           **step_kw):
     """One train step of the tiny configuration on the card and on the CPU
     from the same weights and batch, drop-connect off. Losses within
     ``TRAIN_TOL``. Parameters by the gradient-noise rule of
@@ -667,7 +684,8 @@ def train_tiny_card_vs_cpu(label="make_train_step", batch=None, **step_kw):
     tensor) plus 1e-6 x the model's largest gradient. So that no fault of
     the card's backward widens the noise that would hide it, the card's
     gradient must lie within ``TRAIN_GRAD_TOL`` of float64: a share of its
-    tensor's largest gradient plus a share of the model's."""
+    tensor's largest gradient plus a share of the model's. ``remat``
+    recomputes the model's fusion stack in the backward pass."""
     from srbh_tpu_torch.models.height_model import SRRegressClsFeature
     from srbh_tpu_torch.models.layers import init_weights
     from srbh_tpu_torch.models.rrdbnet import RRDBNet
@@ -678,7 +696,7 @@ def train_tiny_card_vs_cpu(label="make_train_step", batch=None, **step_kw):
     sr = init_weights(RRDBNet(num_block=2, num_feat=16, num_grow_ch=8), gen)
     model = init_weights(SRRegressClsFeature(
         "efficientnet-test", super_mid=8, isaggre=True, chans_build=7,
-        sr_chans=16, drop_connect_rate=0.0), gen)
+        sr_chans=16, drop_connect_rate=0.0, remat=remat), gen)
     batch = train_batch(np.random.default_rng(4), 4) if batch is None else batch
     trained_on, augment = dict(batch), steps._augment
 
@@ -2129,10 +2147,11 @@ def gan_snapshot(state):
             {i: state.net_d.sn_convs()[i].sigma.item() for i in range(8)})
 
 
-def gan_tiny_card_vs_cpu():
+def gan_tiny_card_vs_cpu(remat=False):
     """Two GAN steps of the tiny configuration (NF 8, GC 4, one RRDB, D
     width 8, VGG19 perceptual, batch 2, lq 8 -> gt 32) on the card and on
-    the CPU from the same seeded weights and batches."""
+    the CPU from the same seeded weights and batches; ``remat`` recomputes
+    the generator's RRDBs in the backward pass."""
     from srbh_tpu_torch.train.sr_trainer import RealESRGANTrainer
 
     rng = np.random.default_rng(9)
@@ -2140,7 +2159,8 @@ def gan_tiny_card_vs_cpu():
                 rng.uniform(0, 1, (2, 32, 32, 3)).astype(np.float32)) for _ in range(2)]
     out = {}
     for dev in ("cpu", "cuda"):
-        tr = RealESRGANTrainer(num_block=1, num_feat=8, num_grow_ch=4, disc_feat=8)
+        tr = RealESRGANTrainer(num_block=1, num_feat=8, num_grow_ch=4, disc_feat=8,
+                               remat=remat)
         state = tr.init(0, (2, 8, 8, 3), device=dev)
         step = tr.make_step()
         rows = []
@@ -2165,7 +2185,8 @@ def gan_tiny_card_vs_cpu():
                 if not k.endswith(("weight_u", "weight_v")):
                     bad += int(((a[k] - v).abs() > 1e-4 * (i + 1)).sum())
                     total += v.numel()
-    log(f"[gan] tiny GAN step card vs CPU over 2 steps: metrics max |a-b|/(1+|b|) "
+    log(f"[gan] tiny GAN step{' (remat)' * remat} card vs CPU over 2 steps: "
+        f"metrics max |a-b|/(1+|b|) "
         f"{worst['metric']:.3e} (tol {GAN_TOL:.0e}), SN u {worst['u']:.3e} and sigma "
         f"{worst['sigma']:.3e} (tol {GAN_SN_TOL:.0e}), EMA {worst['ema']:.3e} (tol "
         f"{GAN_EMA_TOL:.0e}); G and D params beyond 1e-4 per step: {bad} of {total} "
@@ -2216,21 +2237,27 @@ def check_gan_reload(trainer, state, logdir):
 def time_gan_steps(smi):
     """tiles/s of the full-width GAN step alone on batches already on the
     card, through ``tools/sr_train_bench.py``'s ``main`` (the step turns
-    cuDNN's autotuning on for itself): bfloat16 and float32, peak memory
-    and the device time by kernel of one step each."""
+    cuDNN's autotuning on for itself): bfloat16 and float32, then float32
+    with each RRDB recomputed in the backward pass (``SRBH_SR_REMAT``, a
+    layout option of phase 14's, timed here beside the plain step and
+    after the GAN shapes' autotuning), peak memory and the device time by
+    kernel of one step each."""
     from srbh_tpu_torch.tools import sr_train_bench
 
     results = {}
-    for rec in run_tool("gan", sr_train_bench.main, [
-            "--batch", str(GAN_BATCH), "--dtype", "bfloat16", "float32",
-            "--repeats", "3", "--steps", "2"], smi):
-        results[rec["dtype"]] = dict(tiles_per_s=rec["value"],
-                                     ms_per_step=rec["median_ms"],
-                                     peak_gib=rec["peak_gib"],
-                                     idle_share=rec["idle_share"])
-        for ms, key in rec["kernels"][:8]:
-            log(f"[gan]   {rec['dtype']}: {ms:9.3f} ms "
-                f"{100 * ms / rec['busy_ms']:5.1f}%  {key[:90]}")
+    for remat, dtypes in (("", ["bfloat16", "float32"]), (" remat", ["float32"])):
+        os.environ["SRBH_SR_REMAT"] = "1" if remat else ""
+        for rec in run_tool("gan", sr_train_bench.main, [
+                "--batch", str(GAN_BATCH), "--dtype", *dtypes,
+                "--repeats", "3", "--steps", "2"], smi):
+            results[rec["dtype"] + remat] = dict(
+                tiles_per_s=rec["value"], ms_per_step=rec["median_ms"],
+                peak_gib=rec["peak_gib"], idle_share=rec["idle_share"],
+                busy_ms=rec["busy_ms"])
+            for ms, key in rec["kernels"][:8 if not remat else 4]:
+                log(f"[gan]   {rec['dtype']}{remat}: {ms:9.3f} ms "
+                    f"{100 * ms / rec['busy_ms']:5.1f}%  {key[:90]}")
+    os.environ.pop("SRBH_SR_REMAT")
     return results
 
 
@@ -2402,13 +2429,15 @@ def check_timers(tag, rec):
 
 def check_convs_seen(rec):
     """The ``tools/_trace.py`` guard's counts in a record: every conv module
-    of the path ran in the timed step, and the profiler saw each call and
-    tied device time to each."""
+    of the path ran in the timed step, and the profiler saw each call (and
+    as many calls made with a module's weights as the reference made: the
+    packed and int8 layouts) and tied device time to each."""
     c = rec["convs"]
     log(f"[tools] {rec['tool']} {rec.get('dtype', '')} conv guard: {json.dumps(c)}")
     if not (c["modules_called"] == c["conv_modules"]
             and c["profiled_on_device"] == c["profiled_convs"]
-            == c["conv_calls"] >= c["conv_modules"]):
+            == c["conv_calls"] + c["reference_unhooked"]
+            and c["conv_calls"] >= c["conv_modules"]):
         raise AssertionError(f"{rec['tool']}: the guard missed convolutions: {c}")
 
 
@@ -2521,7 +2550,8 @@ def phase_tools(wa, smi, flagship):
     wa.window_attention.launches = 0
     out = {}
     rec = run_tool("tools", profile_flagship.main, [
-        "--batch", str(CITY_BATCH), "--dtype", "float32", "--repeats", "3"], smi)[0]
+        "--batch", str(CITY_BATCH), "--dtype", "float32", "--repeats", "3",
+        "--stages", ",".join(profile_flagship.PARTS + ("full",))], smi)[0]
     for k, v in rec["stages"].items():
         if not (v["median_ms"] and v["median_ms"] > 0):
             raise AssertionError(f"profile_flagship {k}: {v}")
@@ -2529,6 +2559,7 @@ def phase_tools(wa, smi, flagship):
         + ", ".join(f"{k} {v['median_ms']:.3f} ({v['timer']})"
                     for k, v in rec["stages"].items())
         + f"; sum of parts {rec['sum_of_parts_ms']:.3f}")
+    out["profile_ms"] = {k: v["median_ms"] for k, v in rec["stages"].items()}
     bench_f32 = next(r for r in flagship if r["dtype"] == "float32")
     ratio = bench_f32["value"] / rec["full_tiles_per_sec"]
     out["bench_float32_vs_profile_full"] = ratio
@@ -3288,6 +3319,316 @@ def phase_parallel(wa, smi):
             "dryrun": line}
 
 
+# phase 14: the layout options. Card against CPU at tiny width: outputs
+# within FLAGSHIP_TOL x (1 + |b|), steps by phase 6's and phase 9's rules,
+# int8 sums equal. Full width on the card: the fused trunk within
+# LAYOUT_FUSED_TOL of the literal one's largest |feature|, the int8 trunk
+# above INT8_SNR_DB against float32 (tests/test_quant.py's bound), the packed
+# flagship and the dual head within FLAGSHIP_TOL x (1 + |b|) of the literal
+# forms at batch CITY_BATCH. LAYOUT_TRUNK_BATCH tiles for the trunk checks.
+LAYOUT_FUSED_TOL, INT8_SNR_DB, LAYOUT_TRUNK_BATCH = 1e-4, 25.0, 8
+# (ci, co, k, stride, batch, side) of the int8 sums card vs CPU: conv_first
+# (K = 27, padded), a dense-block conv, odd widths at stride 2, a 1x1
+INT8_SHAPES = ((3, 64, 3, 1, 2, 16), (160, 32, 3, 1, 2, 16),
+               (5, 7, 3, 2, 1, 9), (16, 8, 1, 1, 1, 6))
+
+
+def _close_rel(label, got, want, tol=FLAGSHIP_TOL):
+    """|a - b| <= tol x (1 + |b|) over every pair of tensors."""
+    err = max(((a.float().cpu() - b.float().cpu()).abs()
+               / (1 + b.float().cpu().abs())).max().item()
+              for a, b in zip(got, want))
+    log(f"[layout] {label}: max |a-b|/(1+|b|) {err:.3e} (tol {tol:.0e})")
+    if not err <= tol:
+        raise AssertionError(f"{label} disagrees")
+    return err
+
+
+def _tiny_flagship_layouts():
+    """The tiny flagship (efficientnet-test, super_mid 8) with its
+    BatchNorm statistics drawn, on the CPU, eval mode."""
+    from srbh_tpu_torch import entry
+
+    model, sr, _ = entry.flagship(tiny=True, device="cpu", seed=0)
+    gen = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.normal_(0, 0.1, generator=gen)
+                m.running_var.uniform_(0.5, 1.5, generator=gen)
+    return model, sr
+
+
+def layout_tiny_card_vs_cpu():
+    """Each layout option on the card against the CPU at tiny width."""
+    from srbh_tpu_torch.models.dual_head import dual_head_apply
+    from srbh_tpu_torch.models.layers import init_weights
+    from srbh_tpu_torch.models.rrdbnet import RRDBNet
+    from srbh_tpu_torch.ops import quant
+
+    errs = {}
+    train_tiny_card_vs_cpu("remat make_train_step", remat=True)
+    gan_tiny_card_vs_cpu(remat=True)
+    rng = np.random.default_rng(14)
+    x = torch.as_tensor(rng.uniform(0, 1, (2, 3, 16, 16)).astype(np.float32))
+    gen = torch.Generator().manual_seed(14)
+    trunk = init_weights(RRDBNet(num_block=2, num_feat=16, num_grow_ch=8), gen)
+    for name, kw in (("fused", dict(fused=True)), ("int8", dict(quantize=True))):
+        m = RRDBNet(num_block=2, num_feat=16, num_grow_ch=8, **kw)
+        m.load_state_dict(trunk.state_dict())
+        with torch.no_grad():
+            want = m(x, features_only=True), m(x)
+            got = m.cuda()(x.cuda(), features_only=True), m(x.cuda())
+        errs[name] = _close_rel(f"tiny RRDBNet {name} card vs CPU (features, "
+                                f"image)", got, want)
+    with torch.no_grad():
+        lit = trunk(x, features_only=True), trunk(x)
+        fused = RRDBNet(num_block=2, num_feat=16, num_grow_ch=8, fused=True)
+        fused.load_state_dict(trunk.state_dict())
+        _close_rel("tiny RRDBNet fused vs literal, CPU",
+                   (fused(x, features_only=True), fused(x)), lit, 1e-5)
+    for ci, co, k, stride, b, side in INT8_SHAPES:
+        xq = torch.as_tensor(rng.integers(-127, 128, (b, ci, side, side)), dtype=torch.int8)
+        wq = torch.as_tensor(rng.integers(-127, 128, (co, ci, k, k)), dtype=torch.int8)
+        want = quant.int8_conv_sums(xq, wq, stride)
+        got = quant.int8_conv_sums(xq.cuda(), wq.cuda(), stride).cpu()
+        log(f"[layout] int8_conv_sums {ci}->{co} k{k} s{stride} on {b}x{side}^2: "
+            f"card {tuple(got.shape)} {got.dtype}, equal to the CPU's: "
+            f"{torch.equal(got, want)}")
+        if got.dtype != torch.int32 or not torch.equal(got, want):
+            raise AssertionError("int8_conv_sums differ card vs CPU")
+    model, sr = _tiny_flagship_layouts()
+    img = torch.as_tensor(rng.uniform(0, 1, (2, 8, 64, 64)).astype(np.float32))
+    with torch.no_grad():
+        fea = sr(img[:, :3], features_only=True)
+        lit = model(img, fea)
+        model.compute_mode = "packed"
+        want = model(img, fea)
+        _close_rel("tiny flagship packed vs literal, CPU", want, lit, 1e-5)
+        g_model = copy.deepcopy(model).cuda()
+        errs["packed"] = _close_rel("tiny flagship packed card vs CPU",
+                                    g_model(img.cuda(), fea.cuda()), want)
+        model.compute_mode = "literal"
+        mid, super_mid = (model.aggre_height.in_channels,
+                          model.hrfeat[-1].conv2.out_channels)
+        hf = torch.rand(2, mid, 64, 64, generator=gen)
+        bf = torch.rand(2, mid, 64, 64, generator=gen)
+        hr = torch.rand(2, super_mid, 256, 256, generator=gen)
+        heads = model.reg(hf, hr), model.seg(bf, hr)
+        want = dual_head_apply(model, hf, bf, hr)
+        _close_rel("tiny dual_head_apply vs the two heads, CPU", want, heads, 1e-5)
+        errs["dual_head"] = _close_rel(
+            "tiny dual_head_apply card vs CPU",
+            dual_head_apply(g_model, hf.cuda(), bf.cuda(), hr.cuda()), want)
+    return errs
+
+
+def layout_full_width(smi):
+    """Full width on the card: RRDBNet-23 fused against literal, the int8
+    trunk's SNR against float32, the packed flagship and the dual head
+    against the literal forms at batch ``CITY_BATCH``."""
+    from srbh_tpu_torch import entry
+    from srbh_tpu_torch.models.dual_head import dual_head_apply
+
+    out = {}
+    model, sr, _ = entry.flagship(device="cuda", seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    x = torch.rand((LAYOUT_TRUNK_BATCH, 3, 64, 64), generator=gen, device="cuda")
+    with torch.no_grad():
+        ref = sr(x, features_only=True)
+        for name in ("fused", "quantize"):
+            layout = copy.deepcopy(sr)
+            for m in layout.modules():
+                if hasattr(m, name):
+                    setattr(m, name, True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = layout(x, features_only=True)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            if name == "fused":
+                err = ((got - ref).abs().max() / ref.abs().max()).item()
+                out["fused_rel_err"] = err
+                log(f"[layout] RRDBNet-23 fused vs literal, float32, batch "
+                    f"{LAYOUT_TRUNK_BATCH}: max |a-b| / max |b| {err:.3e} (tol "
+                    f"{LAYOUT_FUSED_TOL:.0e}); one pass {ms:.1f} ms (first call)")
+                if not err <= LAYOUT_FUSED_TOL:
+                    raise AssertionError("the fused trunk disagrees")
+            else:
+                snr = 10 * math.log10(ref.double().pow(2).sum().item()
+                                      / (got - ref).double().pow(2).sum().item())
+                out["int8_snr_db"] = snr
+                log(f"[layout] RRDBNet-23 int8 trunk vs float32, batch "
+                    f"{LAYOUT_TRUNK_BATCH}: SNR {snr:.2f} dB (limit > "
+                    f"{INT8_SNR_DB:g}); one pass {ms:.1f} ms (first call)")
+                if not snr > INT8_SNR_DB:
+                    raise AssertionError("the int8 trunk is not faithful")
+            del layout
+        img = torch.rand((CITY_BATCH, 8, 64, 64), generator=gen, device="cuda")
+        fea = sr(img[:, :3], features_only=True)
+        lit = model(img, fea)
+        model.compute_mode = "packed"
+        packed = model(img, fea)
+        model.compute_mode = "literal"
+        out["packed_err"] = _close_rel(
+            f"full-width flagship packed vs literal, float32, batch {CITY_BATCH}",
+            packed, lit)
+        hf = torch.rand((CITY_BATCH, 16, 64, 64), generator=gen, device="cuda")
+        bf = torch.rand((CITY_BATCH, 16, 64, 64), generator=gen, device="cuda")
+        hr = model.hrfeat(fea)
+        out["dual_head_err"] = _close_rel(
+            f"full-width dual_head_apply vs the two heads, float32, batch "
+            f"{CITY_BATCH}", dual_head_apply(model, hf, bf, hr),
+            (model.reg(hf, hr), model.seg(bf, hr)))
+    del model, sr
+    torch.cuda.empty_cache()
+    log(f"[layout] full width checked; {smi}")
+    return out
+
+
+def layout_cli_packed(root, smi):
+    """The city CLI on phase 7's tiny city (200x150) with the tiny
+    configuration, literal and with ``SRBH_PACKED=1``, the same checkpoint:
+    the mosaics within the quantised-output limit (bfloat16, batch 16)."""
+    from srbh_tpu_torch.predict import __main__ as cli
+    from srbh_tpu_torch.train.checkpoint import save_checkpoint
+    from srbh_tpu_torch.train.config import get_args
+    from srbh_tpu_torch.train.state import TrainState
+    from srbh_tpu_torch.train.trainer import build_models
+
+    region = os.path.join(root, "data", "urban", "input_data", "s2chn_large")
+    write_city(region, "tiny", 200, 150, seed=6)
+    paths, secs = {}, {}
+    for mode in ("literal", "packed"):
+        logdir = os.path.join(root, f"logs_{mode}")
+        argv = ["--datapath", os.path.join(root, "data"), "--logdir", logdir,
+                "--logdirhr", os.path.join(root, "no_sr_checkpoint"),
+                "--datastats", os.path.join(region, "stats"),
+                "--s1dir", "s1x", "--s2dir", "s2x",
+                "--encoder_name", "efficientnet-test", "--super_mid", "8",
+                "--sr_num_block", "2", "--sr_num_feat", "16",
+                "--sr_num_grow", "8"]
+        model, _ = build_models(get_args(city="globe", argv=argv))
+        with torch.no_grad():  # heights above the clamp at 0
+            model.reg.conv_last.bias.fill_(2.0)
+        os.makedirs(logdir)
+        save_checkpoint(logdir, TrainState(model), 20, 0.0)
+        os.environ["SRBH_PACKED"] = "1" if mode == "packed" else ""
+        t0 = time.perf_counter()
+        paths[mode] = cli.main(argv)[0]
+        torch.cuda.synchronize()
+        secs[mode] = time.perf_counter() - t0
+    os.environ.pop("SRBH_PACKED")
+    shares = compare_mosaics("tiny city CLI, SRBH_PACKED=1 vs literal, "
+                             "bfloat16", read_mosaic(paths["packed"]),
+                             read_mosaic(paths["literal"]))
+    log(f"[layout] tiny city CLI: literal {secs['literal']:.2f} s, packed "
+        f"{secs['packed']:.2f} s (models built on the CPU included); {smi}")
+    return {"cli_s": secs, "cli_shares": shares}
+
+
+def layout_tools(smi, train, tools):
+    """Each layout switch of the tools once: the bench under
+    ``SRBH_BENCH_INT8`` and ``SRBH_BENCH_PACKED``, ``train_bench`` with
+    remat (peak memory beside phase 6's plain step; ``sr_train_bench``'s
+    remat runs in phase 9, beside the plain GAN step), and
+    ``profile_flagship``'s packed and grouped stages beside phase 11's
+    literal ones."""
+    from srbh_tpu_torch import bench
+    from srbh_tpu_torch.tools import profile_flagship, train_bench
+
+    out = {}
+    # the int8 trunk in float32 only: its step is ~3x the packed one's
+    for var, suffix, dtypes in (("SRBH_BENCH_INT8", "_int8", ["float32"]),
+                                ("SRBH_BENCH_PACKED", "_packed",
+                                 ["float32", "bfloat16"])):
+        os.environ[var] = "1"
+        recs = run_tool("layout", bench.main, ["--batch", str(CITY_BATCH),
+                                               "--repeats", "2", "--dtype",
+                                               *dtypes], smi)
+        os.environ.pop(var)
+        for rec in recs:
+            if not rec["metric"].endswith(suffix):
+                raise AssertionError(f"{var}: the bench ran {rec['metric']}")
+            out[f"bench{suffix}_{rec['dtype']}"] = dict(
+                tiles_per_s=rec["value"], peak_gib=rec["peak_gib"],
+                idle_share=rec["idle_share"])
+            log(f"[layout] bench{suffix} {rec['dtype']}: {rec['value']:.2f} "
+                f"tiles/s, peak {rec['peak_gib']:.2f} GiB, idle share "
+                f"{rec['idle_share']:.3f}")
+            for ms, key in rec["kernels"][:4]:
+                log(f"[layout]   {rec['dtype']}: {ms:9.3f} ms  {key[:90]}")
+        check_convs_seen(recs[0])
+    os.environ["SRBH_TRAIN_REMAT"] = "1"
+    rec = run_tool("layout", train_bench.main, [
+        "--batch", str(TRAIN_BATCH), "--dtype", "float32", "--repeats", "2",
+        "--steps", "2"], smi)[0]
+    os.environ.pop("SRBH_TRAIN_REMAT")
+    if not (rec["remat"] and rec["metric"].endswith("_remat")):
+        raise AssertionError(f"SRBH_TRAIN_REMAT: {rec['metric']}")
+    plain = train["steps"]["float32"]
+    out["train_bench_remat"] = dict(tiles_per_s=rec["value"],
+                                    ms_per_step=rec["median_ms"],
+                                    peak_gib=rec["peak_gib"])
+    log(f"[layout] train_bench remat float32, batch {TRAIN_BATCH}: "
+        f"{rec['value']:.2f} tiles/s, {rec['median_ms']:.1f} ms a step, peak "
+        f"{rec['peak_gib']:.2f} GiB (phase 6, plain: {plain['tiles_per_s']:.2f} "
+        f"tiles/s, peak {plain['peak_gib']:.2f} GiB); {smi}")
+    stages = profile_flagship.STAGES[-4:]
+    rec = run_tool("layout", profile_flagship.main, [
+        "--batch", str(CITY_BATCH), "--dtype", "float32", "--repeats", "3",
+        "--stages", ",".join(stages)], smi)[0]
+    lit = tools["profile_ms"]
+    out["profile_ms"] = {k: rec["stages"][k]["median_ms"] for k in stages}
+    log(f"[layout] profile_flagship float32, batch {CITY_BATCH}, ms: "
+        + ", ".join(f"{k} {out['profile_ms'][k]:.3f}" for k in stages)
+        + f"; phase 11's literal: hrfeat {lit['hrfeat']:.3f}, heads "
+        f"{lit['heads']:.3f}, full {lit['full']:.3f}; {smi}")
+    for k, v in out["profile_ms"].items():
+        if not (v and v > 0):
+            raise AssertionError(f"profile_flagship {k}: {v}")
+    return out
+
+
+def phase_layout(wa, smi, train, tools):
+    """Phase 14: the layout options (remat, the fused dense block, the int8
+    trunk, the packed fusion stack, the dual head) card against CPU at tiny
+    width, at full width on the card, through each tool's switch once, the
+    city CLI with ``SRBH_PACKED=1``, and the port's quickstart example on the
+    card."""
+    from srbh_tpu_torch.examples import quickstart
+
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    wa.window_attention.launches = 0
+    timed = {"tiny": layout_tiny_card_vs_cpu()}
+    timed["tiny_s"] = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    timed["full"] = layout_full_width(smi)
+    timed["full_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    timed["tools"] = layout_tools(smi, train, tools)
+    timed["tools_s"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        timed.update(layout_cli_packed(os.path.join(root, "cli"), smi))
+        timed["cli_phase_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        build_tif, height_tif = quickstart.main(os.path.join(root, "quickstart"))
+        timed["quickstart_s"] = time.perf_counter() - t0
+        log(f"[layout] examples.quickstart on the card: {timed['quickstart_s']:.1f} s; "
+            f"wrote {os.path.basename(build_tif)}, {os.path.basename(height_tif)}")
+    launches = wa.window_attention.launches
+    timed["phase_s"] = time.perf_counter() - t_phase
+    log(f"[layout] window_attention launches over the phase: {launches}; "
+        f"phase {timed['phase_s']:.1f} s (tiny {timed['tiny_s']:.1f}, full width "
+        f"{timed['full_s']:.1f}, tools {timed['tools_s']:.1f}, CLI "
+        f"{timed['cli_phase_s']:.1f}, quickstart {timed['quickstart_s']:.1f})")
+    if launches:
+        raise AssertionError("the layout options launched the hand kernel")
+    return {"launches": launches, **timed}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3320,8 +3661,16 @@ def main() -> int:
     log(f"[prepare] summary {json.dumps(prepare)}")
     parallel = phase_parallel(wa, smi)
     log(f"[parallel] summary {json.dumps(parallel)}")
+    layout = phase_layout(wa, smi, train, tools)
+    log(f"[layout] summary {json.dumps(layout)}")
     gan = phase_gan(wa, smi)
     log(f"[gan] summary {json.dumps(gan)}")
+    remat, plain = gan["steps_alone"]["float32 remat"], gan["steps_alone"]["float32"]
+    log(f"[gan] sr_train_bench float32, batch {GAN_BATCH}: remat "
+        f"{remat['tiles_per_s']:.2f} tiles/s, {remat['ms_per_step']:.1f} ms "
+        f"(busy {remat['busy_ms']:.1f}), peak {remat['peak_gib']:.2f} GiB; plain "
+        f"{plain['tiles_per_s']:.2f} tiles/s, {plain['ms_per_step']:.1f} ms (busy "
+        f"{plain['busy_ms']:.1f}), peak {plain['peak_gib']:.2f} GiB; {smi}")
 
     # the inputs SwinIR gives the kernel: strided views of its qkv projection
     plain, masked = rows["classical_qkv"], rows["classical_masked_qkv"]
@@ -3343,6 +3692,7 @@ def main() -> int:
                              "tools": tools["launches"],
                              "prepare": prepare["launches"],
                              "parallel": parallel["launches"],
+                             "layout_options": layout["launches"],
                              "gan": gan["launches"]},
         "max_abs_err": max(r["max_abs_err"] for n, r in rows.items()
                            if "bf16" not in n),

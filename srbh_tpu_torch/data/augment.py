@@ -150,3 +150,78 @@ def augment_lrhr_pair(rng: np.random.Generator, lr: np.ndarray, hr: np.ndarray,
         lr = rotate_image_lowres(lr, angle, scale)
         hr = rotate_image_lowres(hr, angle, 1)
     return lr, hr
+
+
+_LUMA = np.asarray([0.2989, 0.587, 0.114], np.float32)  # ITU-R 601
+_FLT_EPSILON = np.float32(np.finfo(np.float32).eps)
+# cv2's HSV -> RGB sector table: the (r, g, b) entries of
+# (v, v(1-s), v(1-sh), v(1-s(1-h))) for each sextant of the hue
+_SECTORS = np.asarray([[0, 3, 1], [2, 0, 1], [1, 0, 3],
+                       [1, 2, 0], [3, 1, 0], [0, 1, 2]])
+
+
+def rgb_to_hsv(img: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(img, cv2.COLOR_RGB2HSV)`` of a float32 image: H in
+    [0, 360), ``S = (V - min) / (V + FLT_EPSILON)``, V the maximum."""
+    r, g, b = img[..., 0], img[..., 1], img[..., 2]
+    v = np.maximum(np.maximum(r, g), b)
+    diff = v - np.minimum(np.minimum(r, g), b)
+    s = diff / (np.abs(v) + _FLT_EPSILON)
+    k = (60.0 / (diff + _FLT_EPSILON).astype(np.float64)).astype(np.float32)
+    h = np.where(v == r, (g - b) * k,
+                 np.where(v == g, (b - r) * k + np.float32(120.0),
+                          (r - g) * k + np.float32(240.0)))
+    h = np.where(h < 0, h + np.float32(360.0), h)
+    return np.stack([h, s, v], axis=-1).astype(np.float32)
+
+
+def hsv_to_rgb(hsv: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(hsv, cv2.COLOR_HSV2RGB)`` of a float32 image with H
+    in degrees: the hue's sextant picks each channel from
+    ``(v, v(1-s), v(1-s h), v(1-s(1-h)))``."""
+    h, s, v = hsv[..., 0], hsv[..., 1], hsv[..., 2]
+    h = np.fmod(h * np.float32(6.0 / 360.0), np.float32(6.0))
+    h = np.where(h < 0, h + np.float32(6.0), h)
+    sector = np.floor(h).astype(np.int64)
+    h = h - sector.astype(np.float32)
+    bad = (sector < 0) | (sector >= 6)
+    sector, h = np.where(bad, 0, sector), np.where(bad, np.float32(0.0), h)
+    one = np.float32(1.0)
+    tab = np.stack([v, v * (one - s), v * (one - s * h),
+                    v * (one - s * (one - h))], axis=-1)
+    rgb = np.take_along_axis(tab, _SECTORS[sector], axis=-1)
+    return np.where((s == 0)[..., None], v[..., None], rgb).astype(np.float32)
+
+
+def color_jitter(rng: np.random.Generator, img01: np.ndarray,
+                 brightness=0.5, contrast=0.5, saturation=0.5, hue=0.25,
+                 p=0.8) -> np.ndarray:
+    """The reference's strong augmentation of a [0, 1] RGB image
+    (BH_loader.py:24-28; ``srbh_tpu/data/augment.py:153``): with
+    probability ``p``, factors drawn from [max(0, 1-x), 1+x] (the hue shift
+    from [-hue, hue], in turns), the four adjustments in a random order,
+    each result clamped to [0, 1]. Contrast blends against the scalar mean
+    of the ITU-R 601 gray image, saturation against the per-pixel gray, and
+    the hue turns in cv2's float32 HSV. The draws (``random``, four
+    ``uniform``, ``permutation(4)``) are the JAX package's."""
+    if rng.random() >= p:
+        return img01
+    b = float(rng.uniform(max(0.0, 1.0 - brightness), 1.0 + brightness))
+    c = float(rng.uniform(max(0.0, 1.0 - contrast), 1.0 + contrast))
+    s = float(rng.uniform(max(0.0, 1.0 - saturation), 1.0 + saturation))
+    hshift = float(rng.uniform(-hue, hue))
+    out = img01.astype(np.float32).copy()
+    for op in rng.permutation(4):
+        if op == 0:
+            out = np.clip(out * b, 0.0, 1.0)
+        elif op == 1:
+            mean = float((out @ _LUMA).mean())
+            out = np.clip(c * out + (1.0 - c) * mean, 0.0, 1.0)
+        elif op == 2:
+            gray = (out @ _LUMA)[..., None]
+            out = np.clip(s * out + (1.0 - s) * gray, 0.0, 1.0)
+        else:
+            hsv = rgb_to_hsv(out)
+            hsv[..., 0] = (hsv[..., 0] + hshift * 360.0) % 360.0
+            out = np.clip(hsv_to_rgb(hsv), 0.0, 1.0)
+    return out

@@ -16,7 +16,8 @@ it too: a sample is the raw ``s2`` (uint16), ``s1`` and height.
 
 :class:`LRHRPairDataset` (``srbh_tpu/data/dataset.py:264-326``,
 BH_loader.py:638-757) gives the SR finetune's LR (Sentinel-2 RGB) / HR
-(GoogleEarth) pairs.
+(GoogleEarth) pairs. :class:`S2GlobeDataset` and :class:`S1GlobeDataset`
+(``srbh_tpu/data/dataset.py:219-262``) are the single-sensor ablations.
 """
 from __future__ import annotations
 
@@ -124,17 +125,26 @@ class S12GlobeDataset:
         same draws whatever the number or order of loader workers."""
         return np.random.default_rng((self.seed, self._epoch, index))
 
-    def _read(self, index):
-        """(s2, s1, height, s2 path) as the files hold them."""
-        basename, s1dir, s2dir, bhdir = self._rows[index][:4]
-        s2 = read_tiff(os.path.join(self.rootname, s2dir, basename))[..., : self.nchans]
-        s1 = read_tiff(os.path.join(self.rootname, s1dir, basename))
+    def _read_band(self, index, col):
+        """(raster, path) of the row's file in its S1 (``col`` 1) or S2
+        (``col`` 2) directory, S2 cut to its first ``nchans`` bands."""
+        path = os.path.join(self.rootname, self._rows[index][col],
+                            self._rows[index][0])
+        arr = read_tiff(path)
+        return (arr[..., : self.nchans] if col == 2 else arr), path
+
+    def _read_height(self, index):
+        basename, bhdir = self._rows[index][0], self._rows[index][3]
         hpath = os.path.join(self.rootname, bhdir, basename)
         if os.path.exists(hpath):
-            height = read_tiff(hpath)[..., 0]
-        else:
-            height = np.ones((256, 256), np.uint8)  # BH_loader.py:346
-        return s2, s1, height, os.path.join(self.rootname, s2dir, basename)
+            return read_tiff(hpath)[..., 0]
+        return np.ones((256, 256), np.uint8)  # BH_loader.py:346
+
+    def _read(self, index):
+        """(s2, s1, height, s2 path) as the files hold them."""
+        s2, path = self._read_band(index, 2)
+        s1, _ = self._read_band(index, 1)
+        return s2, s1, self._read_height(index), path
 
     def _load_pair(self, index):
         s2, s1, height, path = self._read(index)
@@ -142,6 +152,9 @@ class S12GlobeDataset:
 
     def __getitem__(self, index):
         if self.device_norm:
+            if type(self) is not S12GlobeDataset:
+                raise NotImplementedError(
+                    "device_norm is only wired for the S12 main path")
             s2, s1, height, path = self._read(index)
             return {"s2": np.ascontiguousarray(s2),
                     "s1": np.ascontiguousarray(s1.astype(np.float32)),
@@ -186,6 +199,40 @@ class S12GlobeDataset:
             sample["height_aggre"] = aggre
             sample["weight_aggre"] = self._weight32[build_aggre]
         return sample
+
+
+class S2GlobeDataset(S12GlobeDataset):
+    """The S2-only ablation (BH_loader.py:404-516): the first ``nchans``
+    S2 bands, normalised with the S2 table."""
+
+    def _load_pair(self, index):
+        s2, path = self._read_band(index, 2)
+        return s2.astype(np.float32), self._read_height(index), path
+
+
+class S1GlobeDataset(S12GlobeDataset):
+    """The S1-only ablation (BH_loader.py:520-634): every band normalised
+    with the S1 table (``nchans`` defaults to 0: no S2 band)."""
+
+    def __init__(self, *args, **kwargs):
+        kwargs.setdefault("nchans", 0)
+        super().__init__(*args, **kwargs)
+
+    def _load_pair(self, index):
+        s1, path = self._read_band(index, 1)
+        return s1.astype(np.float32), self._read_height(index), path
+
+    def __getitem__(self, index):
+        img, height, img_path = self._load_pair(index)
+        if self.aug:
+            img, height = augment_pair_lowres(self._sample_rng(index), img, height)
+        if self.s1_off is None:
+            raise FileNotFoundError(
+                f"missing S1 stats table {self._s1_stats_path}")
+        img = (img - self.s1_off) / self.s1_scale
+        if isinstance(self.datarange, tuple):
+            img = img.clip(*self.datarange)
+        return self._finish_sample(img.astype(np.float32), height, img_path)
 
 
 class LRHRPairDataset:

@@ -23,27 +23,35 @@ from srbh_tpu_torch.models.rrdbnet import RRDBNet
 from srbh_tpu_torch.tools.timing import flop_count
 
 
-def modules(tiny: bool = False):
+def modules(tiny: bool = False, quantize: bool = False,
+            compute_mode: str = "literal"):
     """(model, sr): the height model and the RRDBNet as constructed, on the
     default device (``torch.device("meta")`` builds them without memory).
     ``tiny=True`` is the small test configuration (RRDBNet-2 of width 16,
-    ``efficientnet-test``)."""
+    ``efficientnet-test``); ``quantize`` is the RRDBNet's int8 trunk and
+    ``compute_mode`` the height model's (``"packed"``: inference only)."""
     if tiny:
         return (SRRegressClsFeature("efficientnet-test", super_mid=8,
-                                    isaggre=True, chans_build=7, sr_chans=16),
-                RRDBNet(num_block=2, num_feat=16, num_grow_ch=8))
+                                    isaggre=True, chans_build=7, sr_chans=16,
+                                    compute_mode=compute_mode),
+                RRDBNet(num_block=2, num_feat=16, num_grow_ch=8,
+                        quantize=quantize))
     return (SRRegressClsFeature("efficientnet-b4", super_mid=16, isaggre=True,
-                                chans_build=7, sr_chans=64),
-            RRDBNet(num_block=23, num_feat=64, num_grow_ch=32))
+                                chans_build=7, sr_chans=64,
+                                compute_mode=compute_mode),
+            RRDBNet(num_block=23, num_feat=64, num_grow_ch=32,
+                    quantize=quantize))
 
 
 def flagship(tile: int = 64, batch: int = 8, tiny: bool = False, device=None,
-             seed: int = 0):
-    """(model, sr, x): the height model and the RRDBNet (:func:`modules`)
-    in eval mode on ``device`` (``None`` is the card), and a zero NHWC image
-    batch (batch, tile, tile, 8)."""
+             seed: int = 0, quantize: bool = False,
+             compute_mode: str = "literal"):
+    """(model, sr, x): the height model and the RRDBNet (:func:`modules`,
+    with its layout options) in eval mode on ``device`` (``None`` is the
+    card), and a zero NHWC image batch (batch, tile, tile, 8). The weights
+    do not depend on the options."""
     dev = resolve_device(device)
-    model, sr = modules(tiny)
+    model, sr = modules(tiny, quantize, compute_mode)
     gen = torch.Generator().manual_seed(seed)
     init_weights(sr, gen)
     init_weights(model, gen)

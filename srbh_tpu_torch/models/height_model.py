@@ -1,4 +1,4 @@
-"""The height models (NCHW), literal form.
+"""The height models (NCHW).
 
 Counterparts of ``srbh_tpu/models/height_model.py``:
 
@@ -20,6 +20,13 @@ Counterparts of ``srbh_tpu/models/height_model.py``:
 
 Outputs are NCHW: height (N, 1, 256, 256), build logits (N, C, 256, 256),
 aggregated height (N, 1, 64, 64).
+
+:class:`SRRegressClsFeature` takes the JAX package's two layout options
+(``srbh_tpu/models/height_model.py:43-73``), both off by default and both
+with the same parameters: ``compute_mode="packed"`` runs the 256^2 fusion
+stack (the adapter and both heads) in the space-to-depth domain
+(``ops/s2d.py``), inference only; ``remat=True`` recomputes that stack's
+activations in the backward pass (``models.layers.remat``).
 """
 from __future__ import annotations
 
@@ -39,6 +46,7 @@ from srbh_tpu_torch.models.hrfuse import (
     HRUpsample,
     RefineResidual,
 )
+from srbh_tpu_torch.models.layers import remat as remat_call
 from srbh_tpu_torch.models.layers import tconv
 from srbh_tpu_torch.models.unet_decoder import UnetDecoder
 
@@ -64,14 +72,22 @@ def _trunk(model: nn.Module, encoder_name: str, decoder_channels,
 class SRRegressClsFeature(nn.Module):
     """Frozen-SR-feature fused height + build prediction. ``sr_chans`` is
     the width of the SR features (the RRDBNet's ``num_feat``);
-    ``drop_connect_rate`` is the encoder's (training mode only)."""
+    ``drop_connect_rate`` is the encoder's (training mode only).
+    ``compute_mode`` is ``"literal"`` or ``"packed"`` (eval mode only: the
+    packed blocks raise in training mode); ``remat`` recomputes the fusion
+    stack in the backward pass."""
 
     def __init__(self, encoder_name: str = "efficientnet-b4",
                  super_mid: int = 16, isaggre: bool = False,
                  chans_build: int = 2, sr_chans: int = 64,
                  decoder_channels: Sequence[int] = DECODER_CHANNELS,
-                 drop_connect_rate: float = DROP_CONNECT_RATE):
+                 drop_connect_rate: float = DROP_CONNECT_RATE,
+                 compute_mode: str = "literal", remat: bool = False):
         super().__init__()
+        if compute_mode not in ("literal", "packed"):
+            raise ValueError(f"compute_mode {compute_mode!r}: 'literal' or "
+                             "'packed'")
+        self.compute_mode, self.remat = compute_mode, remat
         self.isaggre = isaggre
         mid = _trunk(self, encoder_name, decoder_channels, drop_connect_rate)
         self.hrfeat = HRFeature(sr_chans, super_mid, super_mid)
@@ -90,14 +106,22 @@ class SRRegressClsFeature(nn.Module):
         with_aggre = self.isaggre if with_aggre is None else (
             with_aggre and self.isaggre)
         feats = self.encoder(x, generator)
-        hr = self.hrfeat(super_fea)
+        hr = self._fusion(self.hrfeat, super_fea)
         height_fea = self.decoder1(*feats)
-        outputs = [self.reg(height_fea, hr)]
+        outputs = [self._fusion(self.reg, height_fea, hr)]
         if with_build:
-            outputs.append(self.seg(self.decoder2(*feats), hr))
+            outputs.append(self._fusion(self.seg, self.decoder2(*feats), hr))
         if with_aggre:
             outputs.append(self.aggre_height(height_fea))
         return tuple(outputs) if len(outputs) > 1 else outputs[0]
+
+    def _fusion(self, module, *args):
+        """A module of the 256^2 fusion stack in the model's layout."""
+        if self.compute_mode == "packed":
+            return module.forward_packed(*args)
+        if self.remat:
+            return remat_call(module, *args)
+        return module(*args)
 
 
 class SRRegressClsNosuper(nn.Module):

@@ -1,4 +1,4 @@
-"""HR-feature fusion blocks of the height model (NCHW), literal form.
+"""HR-feature fusion blocks of the height model (NCHW).
 
 Counterparts of ``srbh_tpu/models/hrfuse.py``:
 
@@ -19,6 +19,11 @@ Counterparts of ``srbh_tpu/models/hrfuse.py``:
   lon/lat/alt planes; names ``{i}.*``;
 * :class:`RefineResidual` (SR/HRfuse.py:216-228): concatenate, 3 basic
   blocks and a 3x3 head; names ``fuse.{i}``, ``conv_last``.
+
+``HRFeature.forward_packed`` and ``HRFuseResidual.forward_packed`` are the
+JAX package's ``packed=True`` forms (``srbh_tpu/models/hrfuse.py:45-92``):
+the fusion stack in the space-to-depth domain (``ops/s2d.py``) with the
+same parameters, inference only.
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ from srbh_tpu_torch.models.layers import (
     TorchBatchNorm,
     tconv,
 )
+from srbh_tpu_torch.ops import s2d
 
 
 class HRFeature(nn.Sequential):
@@ -41,6 +47,13 @@ class HRFeature(nn.Sequential):
             BasicBlock(mid_chans, mid_chans),
             BasicBlock(mid_chans, out_chans),
         )
+
+    def forward_packed(self, x):
+        """(B, C, H, W) features -> the parity-0 packed adapter output."""
+        x = s2d.pack(x)
+        for block in self:
+            x = block.forward_packed(x)
+        return x
 
 
 class HRFuseResidual(nn.Module):
@@ -58,6 +71,19 @@ class HRFuseResidual(nn.Module):
     def forward(self, x_lr, x_hr):
         x = torch.cat([self.upsampler(x_lr), x_hr], dim=1)
         return self.conv_last(self.fuse(x))
+
+    def forward_packed(self, x_lr, xp_hr):
+        """``x_hr`` as a parity-0 packed tensor (``HRFeature.forward_packed``):
+        the upsampler emits packed output, the fusion runs packed, and only
+        the head's small output is unpacked."""
+        x = torch.cat([self.upsampler(x_lr, packed_output=True), xp_hr], dim=1)
+        perm = s2d.concat_perm([x_lr.shape[1], xp_hr.shape[1] // 4])
+        x = self.fuse[0].forward_packed(x, kin_perm=perm)
+        for block in self.fuse[1:]:
+            x = block.forward_packed(x)
+        out = s2d.conv3x3_packed(x, 0, self.conv_last.weight,
+                                 self.conv_last.bias)
+        return s2d.unpack(out, parity=1)
 
 
 class HRUpsample(nn.Module):

@@ -1,19 +1,25 @@
-"""Shared building blocks (NCHW), counterparts of ``srbh_tpu/models/layers.py``
-in their literal form.
+"""Shared building blocks (NCHW), counterparts of ``srbh_tpu/models/layers.py``.
 
 * ``tconv`` pads ``k//2`` on both sides, as ``nn.Conv2d(padding=k//2)``.
 * ``TorchBatchNorm`` takes the flax momentum of the JAX package and returns an
   ``nn.BatchNorm2d`` with torch momentum ``1 - momentum``.
 * Module and parameter names are the reference's torch names, so reference
   state dicts load by name.
+* The space-to-depth forms (``ops/s2d.py``) of the basic block, the
+  inference BatchNorm and the upsampler (``packed_output=True``) compute
+  with the literal modules' own parameters: inference only.
+* :func:`remat` recomputes a module's activations in the backward pass.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
+from srbh_tpu_torch.ops import s2d
 from srbh_tpu_torch.ops.shuffle import pixel_shuffle
 
 
@@ -28,6 +34,49 @@ def TorchBatchNorm(num_features: int, momentum: float = 0.9,
                    eps: float = 1e-5) -> nn.BatchNorm2d:
     """BatchNorm2d from the JAX package's flax-convention momentum."""
     return nn.BatchNorm2d(num_features, eps=eps, momentum=1.0 - momentum)
+
+
+class _FirstPassBuffers:
+    """The recompute's context: puts the module's buffers (BatchNorm
+    running statistics and ``num_batches_tracked``) back as the first pass
+    left them, so that a recomputed training forward updates them once."""
+
+    def __init__(self, module: nn.Module):
+        self.module = module
+
+    def __enter__(self):
+        self.saved = [(b, b.clone()) for b in self.module.buffers()]
+
+    def __exit__(self, *exc):
+        with torch.no_grad():
+            for b, kept in self.saved:
+                b.copy_(kept)
+
+
+def remat(module: nn.Module, *args):
+    """``module(*args)``, its activations recomputed in the backward pass
+    instead of kept (``torch.utils.checkpoint``, non-reentrant): the
+    counterpart of flax's ``nn.remat``. The values and gradients are the
+    plain call's; BatchNorm statistics are updated by the first pass only.
+    Without autograd it is the plain call."""
+    if not torch.is_grad_enabled():
+        return module(*args)
+    # the whole module is recomputed (no early stop), so that every op of
+    # it runs the same number of times in each backward
+    with set_checkpoint_early_stop(False):
+        return checkpoint(module, *args, use_reentrant=False,
+                          context_fn=lambda: (contextlib.nullcontext(),
+                                              _FirstPassBuffers(module)))
+
+
+def bn_eval_packed(bn: nn.BatchNorm2d, xp: torch.Tensor) -> torch.Tensor:
+    """Inference BatchNorm of a packed tensor (running statistics, the
+    per-channel affine tiled over the four offsets)."""
+    inv = torch.rsqrt(bn.running_var + bn.eps)
+    mul = (bn.weight * inv).to(xp.dtype)
+    add = (bn.bias - bn.running_mean * bn.weight * inv).to(xp.dtype)
+    return (xp * s2d.tile_channel_param(mul)[:, None, None]
+            + s2d.tile_channel_param(add)[:, None, None])
 
 
 class ConvBNAct(nn.Sequential):
@@ -65,6 +114,22 @@ class BasicBlock(nn.Module):
         out = self.bn2(self.conv2(out))
         return torch.relu(out + identity)
 
+    def forward_packed(self, xp, kin_perm=None):
+        """The block on a parity-0 packed tensor, to a parity-0 packed
+        tensor (inference only, stride 1). ``kin_perm`` (``s2d.concat_perm``)
+        when ``xp`` concatenates separately packed inputs."""
+        if self.training or self.conv1.stride != (1, 1):
+            raise ValueError("packed BasicBlock is inference-only, stride 1")
+        out = s2d.conv3x3_packed(xp, 0, self.conv1.weight, kin_perm=kin_perm)
+        out = torch.relu(bn_eval_packed(self.bn1, out))
+        out = bn_eval_packed(self.bn2,
+                             s2d.conv3x3_packed(out, 1, self.conv2.weight))
+        identity = xp
+        if self.downsample is not None:
+            identity = bn_eval_packed(self.downsample[1], s2d.conv1x1_packed(
+                xp, self.downsample[0].weight, kin_perm=kin_perm))
+        return torch.relu(out + identity)
+
 
 class PixelShuffle(nn.Module):
     def __init__(self, scale: int):
@@ -77,7 +142,10 @@ class PixelShuffle(nn.Module):
 
 class PixelShuffleUpsampler(nn.Sequential):
     """Conv + depth-to-space ladder: x2 per octave for power-of-two scales, a
-    single x3 step for scale 3. Convs sit at even indices (``{2k}``)."""
+    single x3 step for scale 3. Convs sit at even indices (``{2k}``).
+    ``packed_output=True`` (power-of-two scales) leaves out the last
+    shuffle and returns the parity-0 packed form of the output: a channel
+    gather of the last conv's (``s2d.ps_to_pack_perm``)."""
 
     def __init__(self, scale: int, n_feats: int):
         layers = []
@@ -89,6 +157,20 @@ class PixelShuffleUpsampler(nn.Sequential):
         else:
             raise NotImplementedError(f"scale {scale}")
         super().__init__(*layers)
+        self.pow2 = scale & (scale - 1) == 0
+
+    def forward(self, x, packed_output: bool = False):
+        if not packed_output:
+            return super().forward(x)
+        if not self.pow2:
+            raise NotImplementedError("packed_output needs a power-of-2 scale")
+        if not len(self):
+            return s2d.pack(x)  # scale 1: no octave
+        for layer in list(self)[:-1]:
+            x = layer(x)
+        n_feats = x.shape[1] // 4
+        return x[:, torch.as_tensor(s2d.ps_to_pack_perm(n_feats),
+                                    device=x.device)]
 
 
 @torch.no_grad()

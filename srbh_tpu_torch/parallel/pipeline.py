@@ -163,9 +163,10 @@ def rrdb_pipeline_features(sr, x: torch.Tensor, mesh,
     ``num_microbatches`` defaults to ``S``. Raises when ``num_block`` or the
     batch does not divide, or for fewer than one microbatch."""
     if getattr(sr, "quantize", False):
+        # the JAX package has no pipelined int8 trunk, so nor does the port
         raise NotImplementedError("rrdb_pipeline_features of a quantised "
-                                  "RRDBNet is not ported: ROADMAP.md Queue 1 "
-                                  "item 15")
+                                  "RRDBNet: the JAX package refuses it too "
+                                  "(srbh_tpu/parallel/pipeline.py:112-119)")
     n = world(mesh.get_group(axis))
     blocks = len(sr.body)
     if blocks % n:

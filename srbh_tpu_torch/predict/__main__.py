@@ -7,7 +7,9 @@ Counterpart of predict_realesanet_feature_globe.py:12-44: the flags of
 JAX package's ``checkpoint20.npz``), the frozen SR weights from
 ``--logdirhr``, then every city of the six urban-center groups under
 ``<datapath>/urban/input_data/s2<group>`` in bfloat16, batches of 16, host
-stitching, written to ``<logdir>/pred_<epoch>_city<group>``.
+stitching, written to ``<logdir>/pred_<epoch>_city<group>``. With
+``SRBH_PACKED=1`` the height model runs its fusion stack in the
+space-to-depth mode (``compute_mode="packed"``; the same checkpoint).
 """
 import os
 import sys
@@ -34,11 +36,8 @@ def main(argv=None, device=None):
         raise ValueError(f"--model_variant {args.model_variant}: the city "
                          "predictor maps with the SR-feature model "
                          "(SRRegressClsFeature) only, as the JAX predictor does")
-    if os.environ.get("SRBH_PACKED", "") == "1":
-        raise NotImplementedError("SRBH_PACKED=1 (the space-to-depth compute "
-                                  "mode) is not ported: ROADMAP.md Queue 1 "
-                                  "item 15")
-    model, sr = build_models(args)
+    packed = os.environ.get("SRBH_PACKED", "") == "1"
+    model, sr = build_models(args, "packed" if packed else "literal")
     load_sr_weights(args, sr)
     path = os.path.join(args.logdir, args.checkpoint)
     if not os.path.isfile(path) and os.path.isfile(path + ".npz"):

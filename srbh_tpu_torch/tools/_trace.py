@@ -13,8 +13,11 @@ holds three counts against each other:
   ``conv_last``, for one, is not on the feature path);
 * the calls of those modules in the timed call (forward hooks): every one
   must run;
-* the convolutions the profiler saw in the window (``aten::convolution``):
-  as many as the hooks counted.
+* the convolutions the profiler saw in the window (``aten::convolution``,
+  and ``aten::_int_mm``, the int8 trunk's products): as many as the hooks
+  counted, plus as many more as the reference made without a module (the
+  space-to-depth and int8 layouts compute with a module's weights and do
+  not call it), which the profiler counts in the reference too.
 
 On a card the guard also holds a fourth count: the convolutions to which
 the profiler tied device time (``profiled_on_device``: the cuDNN
@@ -33,6 +36,7 @@ import torch
 from torch import nn
 
 CONVS = (nn.Conv2d, nn.ConvTranspose2d)
+CONV_OPS = ("aten::convolution", "aten::_int_mm")
 GUARDED = "srbh_guarded_call"  # the profiler range of the call that counts
 
 
@@ -66,8 +70,11 @@ def check_convs(fn, reference, *models) -> dict:
     from torch.profiler import ProfilerActivity, profile, record_function
 
     convs = conv_modules(*models)
-    with torch.no_grad():
-        want = {k for k, n in _calls(reference, convs).items() if n}
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU]) as ref:
+        ref_calls = _calls(reference, convs)
+    want = {k for k, n in ref_calls.items() if n}
+    ref_unhooked = (sum(1 for e in ref.events() if e.name in CONV_OPS)
+                    - sum(ref_calls.values()))
     cuda = torch.cuda.is_available() and any(
         p.is_cuda for model in models if model is not None
         for p in model.parameters())
@@ -81,13 +88,14 @@ def check_convs(fn, reference, *models) -> dict:
             if cuda:
                 torch.cuda.synchronize()
     span = next(e.time_range for e in prof.events() if e.name == GUARDED)
-    events = [e for e in prof.events() if e.name == "aten::convolution"
+    events = [e for e in prof.events() if e.name in CONV_OPS
               and span.start <= e.time_range.start
               and e.time_range.end <= span.end]
     record = {"conv_modules": len(want),
               "modules_called": sum(1 for k in want if calls[k]),
               "conv_calls": sum(calls.values()),
               "profiled_convs": len(events),
+              "reference_unhooked": ref_unhooked,
               "profiled_on_device": (sum(1 for e in events
                                          if e.device_time_total > 0)
                                      if cuda else None)}
@@ -95,10 +103,11 @@ def check_convs(fn, reference, *models) -> dict:
     if missing:
         raise AssertionError(f"the timed call left out {missing} of "
                              f"{len(want)} convolution modules: {record}")
-    if record["profiled_convs"] != record["conv_calls"]:
+    if record["profiled_convs"] != record["conv_calls"] + ref_unhooked:
         raise AssertionError(f"the profiler saw {record['profiled_convs']} "
                              f"convolutions, the modules ran "
-                             f"{record['conv_calls']}: {record}")
+                             f"{record['conv_calls']} and the reference "
+                             f"{ref_unhooked} more: {record}")
     if cuda and record["profiled_on_device"] != record["profiled_convs"]:
         raise AssertionError(f"the profiler tied device time to "
                              f"{record['profiled_on_device']} of "

@@ -2,6 +2,7 @@
 
     python -m srbh_tpu_torch.tools.composed_bench [--batch 16] [--tiles 256]
         [--workers 4 8] [--modes host device device_norm] [--epochs 2]
+        [--test-scale]
 
 Counterpart of ``srbh_tpu/tools/composed_bench.py:44-173``. The train step
 (``tools/train_bench.py``) and the loader (``tools/loader_bench.py``) are
@@ -181,12 +182,14 @@ def main(argv=None) -> list:
     ap.add_argument("--workers", type=int, nargs="+", default=[4, 8])
     ap.add_argument("--modes", nargs="+", choices=MODES, default=list(MODES))
     ap.add_argument("--epochs", type=int, default=2)
+    ap.add_argument("--test-scale", action="store_true",
+                    help="tiny models (a plumbing check)")
     ap.add_argument("--out", default=os.path.join("chiprun_out",
                                                   "composed_bench.jsonl"))
     args = ap.parse_args(argv)
     dev = timing.tool_device()
     records = run(args.batch, args.tiles, args.workers, args.modes, args.epochs,
-                  device=dev)
+                  tiny=args.test_scale, device=dev)
     timing.emit(records, args.out)
     return records
 

@@ -1,6 +1,7 @@
 """The city predictor on one synthetic big city, through both stitchers.
 
     python -m srbh_tpu_torch.tools.predict_stress [--size 2048] [--batch 32]
+        [--test-scale]
 
 Counterpart of ``srbh_tpu/tools/predict_stress.py:34-129``. It writes one
 synthetic city of ``--size`` x ``--size`` 10 m pixels (S2 uint16, S1
@@ -137,10 +138,13 @@ def main(argv=None) -> list:
                     help="city side in 10 m pixels (the canvases are 4x)")
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--test-scale", action="store_true",
+                    help="tiny models (a plumbing check)")
     ap.add_argument("--out", default=os.path.join("chiprun_out", "predict_stress.jsonl"))
     args = ap.parse_args(argv)
     dev = timing.tool_device()
-    records = run(args.size, args.batch, args.seed, device=dev)
+    records = run(args.size, args.batch, args.seed, tiny=args.test_scale,
+                  device=dev)
     timing.emit(records, args.out)
     return records
 

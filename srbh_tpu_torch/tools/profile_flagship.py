@@ -7,15 +7,20 @@ Counterpart of ``srbh_tpu/tools/profile_flagship.py:73-170``. It splits the
 serving path that ``srbh_tpu_torch.bench`` times into stages and times each
 on seeded inputs of its real shape, on the card:
 
-========  ====================================================
-trunk     frozen RRDBNet features (B, 3, 64, 64) -> (B, 64, 256, 256)
-hrfeat    ``model.hrfeat``: (B, 64, 256, 256) -> (B, 16, 256, 256)
-encdec    the EfficientNet encoder and both U-Net decoders
-heads     the ``reg`` and ``seg`` HRFuseResidual heads
-aggre     the 64x64 aggregation conv
-postproc  the post-processing (``predictor.postprocess``)
-full      the whole path (``predictor.serving_outputs``)
-========  ====================================================
+=============  ===============================================================
+trunk          frozen RRDBNet features (B, 3, 64, 64) -> (B, 64, 256, 256)
+hrfeat         ``model.hrfeat``: (B, 64, 256, 256) -> (B, 16, 256, 256)
+encdec         the EfficientNet encoder and both U-Net decoders
+heads          the ``reg`` and ``seg`` HRFuseResidual heads
+aggre          the 64x64 aggregation conv
+postproc       the post-processing (``predictor.postprocess``)
+full           the whole path (``predictor.serving_outputs``)
+hrfeat_packed  ``hrfeat`` in the space-to-depth form (``ops/s2d.py``), to
+               its packed output
+heads_packed   both heads packed, from the HR features (packed in the stage)
+heads_grouped  both heads as one 2-group stream (``models/dual_head.py``)
+full_packed    the whole path with ``compute_mode="packed"``
+=============  ===============================================================
 
 A stage runs under ``torch.inference_mode()`` and, for bfloat16, autocast
 (the post-processing is float32). Each is timed with the step timer
@@ -23,17 +28,20 @@ A stage runs under ``torch.inference_mode()`` and, for bfloat16, autocast
 synchronize); one whose median is under ``SHORT_MS`` is timed again with
 ``tools/timing.device_ms`` (a CUDA graph of back-to-back calls), since
 its host time would otherwise set its pace. ``full`` is printed beside the
-sum of the parts. The JAX tool's ``*_packed`` and ``heads_grouped`` stages
-(the space-to-depth and grouped-conv forms) raise: ROADMAP item 15.
+sum of the literal parts; the last four stages are other forms of the same
+work, not parts.
 """
 from __future__ import annotations
 
 import argparse
+import copy
 import os
 
 import torch
 
 from srbh_tpu_torch import entry, resolve_device
+from srbh_tpu_torch.models.dual_head import dual_head_apply
+from srbh_tpu_torch.ops import s2d
 from srbh_tpu_torch.predict.predictor import (
     compute_type,
     postprocess,
@@ -42,8 +50,9 @@ from srbh_tpu_torch.predict.predictor import (
 from srbh_tpu_torch.tools import timing
 from srbh_tpu_torch.tools.timing import DTYPES
 
-STAGES = ("trunk", "hrfeat", "encdec", "heads", "aggre", "postproc", "full")
-PARTS = STAGES[:-1]
+STAGES = ("trunk", "hrfeat", "encdec", "heads", "aggre", "postproc", "full",
+          "hrfeat_packed", "heads_packed", "heads_grouped", "full_packed")
+PARTS = STAGES[:6]
 SHORT_MS = 2.0
 
 
@@ -62,6 +71,14 @@ def stage_fns(model, sr, dtype) -> dict:
         feats = model.encoder(x)
         return model.decoder1(*feats), model.decoder2(*feats)
 
+    def heads_packed(d1, d2, hr):
+        hrp = s2d.pack(hr)
+        return model.reg.forward_packed(d1, hrp), model.seg.forward_packed(d2, hrp)
+
+    packed = copy.copy(model)  # the same modules, in the packed layout
+    packed.compute_mode = "packed"
+    state = model.state_dict()
+
     return {
         "trunk": run(lambda x3: sr(x3, features_only=True)),
         "hrfeat": run(model.hrfeat),
@@ -70,6 +87,10 @@ def stage_fns(model, sr, dtype) -> dict:
         "aggre": run(model.aggre_height),
         "postproc": run(postprocess, amp=False),
         "full": run(lambda x: serving_outputs(model, sr, x, dtype=dtype)),
+        "hrfeat_packed": run(model.hrfeat.forward_packed),
+        "heads_packed": run(heads_packed),
+        "heads_grouped": run(lambda d1, d2, hr: dual_head_apply(state, d1, d2, hr)),
+        "full_packed": run(lambda x: serving_outputs(packed, sr, x, dtype=dtype)),
     }
 
 
@@ -89,12 +110,15 @@ def stage_inputs(model, sr, batch: int, tile: int, seed: int, device) -> dict:
     rand = lambda *shape: torch.rand(shape, generator=gen, device=device)
     x = rand(batch, 8, tile, tile)
     dec, hr = rand(batch, mid, tile, tile), rand(batch, super_mid, hr_side, hr_side)
-    return {"trunk": (x[:, :3],),
-            "hrfeat": (rand(batch, sr.conv_first.out_channels, hr_side, hr_side),),
-            "encdec": (x,), "heads": (dec, dec, hr), "aggre": (dec,),
-            "postproc": (rand(batch, 1, hr_side, hr_side),
-                         rand(batch, 7, hr_side, hr_side)),
-            "full": (x,)}
+    ins = {"trunk": (x[:, :3],),
+           "hrfeat": (rand(batch, sr.conv_first.out_channels, hr_side, hr_side),),
+           "encdec": (x,), "heads": (dec, dec, hr), "aggre": (dec,),
+           "postproc": (rand(batch, 1, hr_side, hr_side),
+                        rand(batch, 7, hr_side, hr_side)),
+           "full": (x,)}
+    ins.update(hrfeat_packed=ins["hrfeat"], heads_packed=ins["heads"],
+               heads_grouped=ins["heads"], full_packed=ins["full"])
+    return ins
 
 
 def run(batch: int = 32, dtype: str = "bfloat16", stages=STAGES,
@@ -103,10 +127,6 @@ def run(batch: int = 32, dtype: str = "bfloat16", stages=STAGES,
     """One record of every stage's times on ``device`` (``None`` is the
     card); off a card each stage runs once and its times are ``None``."""
     bad = [s for s in stages if s not in STAGES]
-    if any(s.endswith("_packed") or s == "heads_grouped" for s in bad):
-        raise NotImplementedError(f"stages {bad}: the packed and grouped "
-                                  "forms are not ported: ROADMAP.md Queue 1 "
-                                  "item 15")
     if bad:
         raise ValueError(f"unknown stages {bad}; known: {STAGES}")
     dev = resolve_device(device)

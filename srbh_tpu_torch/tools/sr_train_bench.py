@@ -16,8 +16,9 @@ on the card before the timed loop, alternate. On a card the step runs
 with ``cudnn.benchmark`` on for its own length, as the trainer's step
 always does. For each compute type it prints tiles/s at the median step
 time with the quartiles, the peak memory, the idle share and the device
-time by kernel of one profiled step. ``SRBH_SR_REMAT`` raises: ROADMAP
-item 15.
+time by kernel of one profiled step. ``SRBH_SR_REMAT=1`` times the
+generator with each RRDB recomputed in the backward pass
+(``RealESRGANTrainer(remat=True)``); the metric takes ``_remat``.
 """
 from __future__ import annotations
 
@@ -38,7 +39,7 @@ def run(batch: int = 12, dtypes=("float32", "bfloat16"), repeats: int = 5,
         device=None) -> list:
     """One record per compute type of the GAN step on ``device`` (``None``
     is the card); off a card each step runs once and times are ``None``."""
-    timing.refuse_switches("SRBH_SR_REMAT")
+    remat = os.environ.get("SRBH_SR_REMAT", "") == "1"
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     pairs = [(torch.rand((batch, lq, lq, 3), generator=gen, device=dev),
@@ -48,7 +49,8 @@ def run(batch: int = 12, dtypes=("float32", "bfloat16"), repeats: int = 5,
     for name in dtypes:
         trainer = RealESRGANTrainer(num_block=num_block, num_feat=num_feat,
                                     num_grow_ch=num_grow_ch,
-                                    disc_feat=disc_feat, dtype=DTYPES[name])
+                                    disc_feat=disc_feat, dtype=DTYPES[name],
+                                    remat=remat)
         state = trainer.init(seed, (batch, lq, lq, 3), device=dev)
         step = trainer.make_step()
         last = {}
@@ -60,8 +62,9 @@ def run(batch: int = 12, dtypes=("float32", "bfloat16"), repeats: int = 5,
         if not all(torch.isfinite(v) for v in last.values()):
             raise AssertionError(f"GAN step {name}: losses not finite")
         rec = {"tool": "sr_train_bench",
-               "metric": "sr_gan_train_tiles_per_sec", "batch": batch,
-               "lq": lq, "gt": 4 * lq, "dtype": name,
+               "metric": "sr_gan_train_tiles_per_sec" + "_remat" * remat,
+               "batch": batch, "lq": lq, "gt": 4 * lq, "dtype": name,
+               "remat": remat,
                **timing.device_record(dev), **stats,
                "value": timing.per_second(batch, stats), "unit": "tiles/s",
                "peak_gib": timing.peak_gib(dev), "idle_share": None,

@@ -268,16 +268,6 @@ def tool_device() -> torch.device:
     return dev
 
 
-def refuse_switches(*names: str) -> None:
-    """Raise for an environment switch of the JAX tools whose option is not
-    ported (``ROADMAP.md`` Queue 1 item 15) when it is set to ``1``: a tool
-    never ignores one."""
-    for name in names:
-        if os.environ.get(name, "") == "1":
-            raise NotImplementedError(f"{name}=1 is not ported: ROADMAP.md "
-                                      "Queue 1 item 15")
-
-
 def peak_gib(device: torch.device):
     """``max_memory_allocated`` in GiB since the last reset, ``None`` off a
     card."""

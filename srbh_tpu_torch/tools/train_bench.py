@@ -24,7 +24,9 @@ leading kernels of one profiled step, and, for the first compute type, the
 The JAX tool chains its steps in one ``fori_loop`` and perturbs the image
 with the loss so that XLA cannot hoist the SR pass out of the loop; eager
 PyTorch hoists nothing, and the guard checks that every convolution runs
-in the timed step. ``SRBH_TRAIN_REMAT`` raises: ROADMAP item 15.
+in the timed step. ``SRBH_TRAIN_REMAT=1`` times the model with its 256^2
+fusion stack recomputed in the backward pass (``remat``); the metric takes
+``_remat``, and the peak memory is the figure to read beside the rate.
 """
 from __future__ import annotations
 
@@ -113,15 +115,16 @@ def run(batch: int = 16, dtypes=("float32", "bfloat16"), device_aug: bool = Fals
         tiny: bool = False, steps: int = 3, device=None) -> list:
     """One record per compute type of the train step on ``device`` (``None``
     is the card); off a card each step runs once and times are ``None``."""
-    timing.refuse_switches("SRBH_TRAIN_REMAT")
     device_aug = device_aug or norm or os.environ.get("SRBH_TRAIN_DEVICE_AUG", "") == "1"
+    remat = os.environ.get("SRBH_TRAIN_REMAT", "") == "1"
     dev = resolve_device(device)
-    cfg = train_config(tiny, seed=1337)
+    cfg = train_config(tiny, seed=1337, remat=remat)
     flops = entry.flops_per_tile(tiny, tile)
     flop_per_tile = 3 * flops["model"] + flops["sr"]
     batches = host_batches(2, batch, tile, seed, dev, device_aug, norm)
     lr = 1e-3
-    mode = "_devnorm" if norm else "_devaug" if device_aug else ""
+    mode = ("_devnorm" if norm else "_devaug" if device_aug else "") + (
+        "_remat" if remat else "")
     records = []
     for i, name in enumerate(dtypes):
         state, step = build(cfg, DTYPES[name], dev, device_aug, norm)
@@ -141,6 +144,7 @@ def run(batch: int = 16, dtypes=("float32", "bfloat16"), device_aug: bool = Fals
         rec = {"tool": "train_bench",
                "metric": "height_train_tiles_per_sec" + mode, "batch": batch,
                "dtype": name, "device_aug": device_aug, "norm": norm,
+               "remat": remat,
                **timing.device_record(dev), **stats, "value": tps,
                "unit": "tiles/s", "flop_per_tile": flop_per_tile,
                "tflop_per_s": None if tps is None else tps * flop_per_tile / 1e12,

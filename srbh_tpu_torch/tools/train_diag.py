@@ -17,7 +17,8 @@ step  the whole train step (forward, backward, Adam), state carried
 in float32, the trainer's default, and the memory the step takes:
 ``max_memory_allocated`` and ``max_memory_reserved`` after
 ``reset_peak_memory_stats`` (the port's form of the JAX tool's
-``memory_stats`` peak). ``SRBH_TRAIN_REMAT`` raises: ROADMAP item 15.
+``memory_stats`` peak). ``SRBH_TRAIN_REMAT=1`` measures the model with its
+256^2 fusion stack recomputed in the backward pass (``remat``).
 """
 from __future__ import annotations
 
@@ -35,10 +36,10 @@ def diagnose(batch: int, repeats: int = 5, seed: int = 0, tile: int = 64,
              tiny: bool = False, device=None) -> dict:
     """The record of one batch size on ``device`` (``None`` is the card);
     off a card each part runs once and times and memory are ``None``."""
-    timing.refuse_switches("SRBH_TRAIN_REMAT")
+    remat = os.environ.get("SRBH_TRAIN_REMAT", "") == "1"
     dev = resolve_device(device)
-    state, step = build(train_config(tiny, seed=1337), torch.float32, dev,
-                        False, False)
+    state, step = build(train_config(tiny, seed=1337, remat=remat),
+                        torch.float32, dev, False, False)
     sr = state.sr_model
     batches = host_batches(2, batch, tile, seed, dev)
     images = [b["image"].permute(0, 3, 1, 2)[:, :3] for b in batches]
@@ -60,6 +61,7 @@ def diagnose(batch: int, repeats: int = 5, seed: int = 0, tile: int = 64,
                                repeats)
     cuda = dev.type == "cuda"
     return {"tool": "train_diag", "batch": batch, "dtype": "float32",
+            "remat": remat,
             **timing.device_record(dev),
             "repeats": repeats if cuda else 0,
             "sr": t_sr, "fwd": t_fwd, "step": t_step,

@@ -13,7 +13,10 @@ SR/finetune_realesrgan_x4plus_pairdata.yml):
   decay, and update ``k`` (from 0) at ``schedule(k)``, so with
   ``warmup_iter > 0`` the first update is zero. Each group's ``lr`` is set
   from :func:`multistep_lr` before each update (no torch LR scheduler);
-* ``adapt_weights_to_1ch`` (rrdbnet_arch.py:450-456).
+* ``adapt_weights_to_1ch`` (rrdbnet_arch.py:450-456);
+* ``remat=True``: each RRDB of the generator recomputed in the backward
+  pass (``RRDBNet(remat=True)``), the same values and gradients for less
+  memory.
 
 One step runs the JAX step's sequence (``sr_trainer.py:158-222``): USM of
 the ground truth; the G forward; the G loss with D frozen and applied with
@@ -135,9 +138,8 @@ class RealESRGANTrainer:
                  warmup_iter: int = -1, remat: bool = False,
                  l1_gt_usm: bool = True, percep_gt_usm: bool = True,
                  gan_gt_usm: bool = False):
-        if remat:
-            raise NotImplementedError(
-                "remat is not ported yet: ROADMAP.md Queue 1 item 15")
+        # remat: each RRDB of the generator recomputed in the backward pass
+        self.remat = remat
         self.out_ch, self.scale, self.num_block = out_ch, scale, num_block
         self.num_feat, self.num_grow_ch, self.disc_feat = (num_feat, num_grow_ch,
                                                            disc_feat)
@@ -162,7 +164,8 @@ class RealESRGANTrainer:
         gen = torch.Generator().manual_seed(seed)
         net_g = RRDBNet(num_in_ch=lq_shape[-1], num_out_ch=self.out_ch,
                         scale=self.scale, num_feat=self.num_feat,
-                        num_block=self.num_block, num_grow_ch=self.num_grow_ch)
+                        num_block=self.num_block, num_grow_ch=self.num_grow_ch,
+                        remat=self.remat)
         net_d = UNetDiscriminatorSN(num_in_ch=self.out_ch, num_feat=self.disc_feat)
         init_weights(net_g, gen)
         init_weights(net_d, gen)

@@ -27,10 +27,10 @@ RRDBNet with FSDP2 (``parallel.mesh.shard_state_fsdp``). Validation runs
 sharded on every rank with the global batch's metrics; only rank 0 prints
 and writes.
 
-Not ported yet (``ROADMAP.md``): ``remat``; its flag raises
-(``_REFUSED``). ``save_opt_state`` and ``async_checkpoint`` are accepted and
-change nothing: every checkpoint holds the optimizer state (exact resume)
-and is written synchronously.
+``--remat`` recomputes the height model's 256^2 fusion stack in the
+backward pass (``SRRegressClsFeature(remat=True)``). ``save_opt_state`` and
+``async_checkpoint`` are accepted and change nothing: every checkpoint holds
+the optimizer state (exact resume) and is written synchronously.
 """
 from __future__ import annotations
 
@@ -78,24 +78,18 @@ from srbh_tpu_torch.train.steps import (
     make_train_step,
 )
 
-# flags of TrainConfig the port refuses, and the ROADMAP.md item they wait for
-_REFUSED = {"remat": "Queue 1 item 15"}
-
-
 def _check_supported(cfg: TrainConfig) -> None:
-    for flag, item in _REFUSED.items():
-        if getattr(cfg, flag):
-            raise NotImplementedError(
-                f"--{flag} is not ported yet: ROADMAP.md {item}")
     if cfg.upscale != UPSCALE:
         raise NotImplementedError(f"upscale {cfg.upscale}: the port's height "
                                   f"model is x{UPSCALE}")
 
 
-def build_models(cfg: TrainConfig):
+def build_models(cfg: TrainConfig, compute_mode: str = "literal"):
     """(height model, frozen SR model) with weights drawn from
     ``cfg.seed`` (on the CPU, so every device gets the same ones); the
-    nosuper ablation (``model_variant="nosuper"``) has no SR model."""
+    nosuper ablation (``model_variant="nosuper"``) has no SR model. The
+    feature model takes ``cfg.remat`` and ``compute_mode`` (``"packed"``:
+    inference only)."""
     gen = torch.Generator().manual_seed(cfg.seed)
     if cfg.model_variant == "nosuper":
         model = SRRegressClsNosuper(cfg.encoder_name, isaggre=cfg.isaggre,
@@ -109,7 +103,8 @@ def build_models(cfg: TrainConfig):
     model = SRRegressClsFeature(cfg.encoder_name, super_mid=cfg.super_mid,
                                 isaggre=cfg.isaggre,
                                 chans_build=cfg.chans_build,
-                                sr_chans=cfg.sr_num_feat)
+                                sr_chans=cfg.sr_num_feat,
+                                compute_mode=compute_mode, remat=cfg.remat)
     init_weights(sr, gen)
     init_weights(model, gen)
     return model, sr

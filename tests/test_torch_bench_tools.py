@@ -20,7 +20,7 @@
   holds the ``device`` and ``device_norm`` batches bit-equal; the
   ``predict_stress`` run, the two stitchers' outputs byte-equal); every
   ``main`` raises without a card and prints nothing; the item-15 switches
-  raise.
+  (int8, packed, remat) run their modes and say so.
 """
 import filecmp
 import functools
@@ -339,15 +339,35 @@ def test_main_needs_a_card_and_prints_nothing(name, tmp_path, monkeypatch, capsy
     assert capsys.readouterr().out == "" and not os.listdir(tmp_path)
 
 
-@pytest.mark.parametrize("var,call", [
-    ("SRBH_BENCH_INT8", lambda: bench.run(**CPU)),
-    ("SRBH_BENCH_PACKED", lambda: bench.run(**CPU)),
-    ("SRBH_TRAIN_REMAT", lambda: train_bench.run(**CPU)),
-    ("SRBH_TRAIN_REMAT", lambda: train_diag.diagnose(16, **CPU)),
-    ("SRBH_SR_REMAT", lambda: sr_train_bench.run(**CPU)),
-    ("stages", lambda: profile_flagship.run(stages=["full_packed"], **CPU)),
-])
-def test_item_15_switches_raise(var, call, monkeypatch):
-    monkeypatch.setenv(var, "1")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        call()
+SWITCHED = {  # the record's key that names the mode, and its metric suffix
+    "SRBH_BENCH_INT8": (RUNS["bench"], "int8", "_int8"),
+    "SRBH_BENCH_PACKED": (RUNS["bench"], "packed", "_packed"),
+    "SRBH_TRAIN_REMAT": (RUNS["train_bench"], "remat", "_remat"),
+    "SRBH_TRAIN_REMAT diag": (RUNS["train_diag"], "remat", None),
+    "SRBH_SR_REMAT": (RUNS["sr_train_bench"], "remat", "_remat"),
+}
+
+
+@pytest.mark.parametrize("var", sorted(SWITCHED) + ["stages"])
+def test_item_15_switches_raise(var, monkeypatch):
+    """The JAX tools' item-15 switches, which raised until the layout
+    options were ported: each now runs its mode on the CPU at tiny size
+    (the bench's conv guard included) and says so in its records; the
+    profiler's packed and grouped stages run beside the literal ones."""
+    if var == "stages":
+        stages = profile_flagship.STAGES[-4:]
+        rec = profile_flagship.run(batch=1, dtype="float32", tile=TILE,
+                                   tiny=True, stages=stages, **CPU)
+        assert sorted(rec["stages"]) == sorted(stages)
+        return
+    run, key, suffix = SWITCHED[var]
+    monkeypatch.setenv(var.split()[0], "1")
+    records = run()
+    for rec in records:
+        assert rec[key] is True
+        if suffix:
+            assert rec["metric"].endswith(suffix)
+    if var.startswith("SRBH_BENCH"):
+        assert records[0]["convs"]["reference_unhooked"] > 0
+    monkeypatch.delenv(var.split()[0])
+    assert all(rec[key] is False for rec in run())

@@ -307,11 +307,6 @@ def test_bfloat16_step_keeps_a_float32_state():
     assert bf.ema_apply_fn()(state, lq).dtype == torch.float32
 
 
-def test_remat_is_refused():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        RealESRGANTrainer(remat=True)
-
-
 def test_cudnn_autotuning_holds_only_inside_a_card_step():
     """The step's autotuning scope: on a card it turns cuDNN's benchmark on
     and restores the flag after the block, an exception included; on the

@@ -334,9 +334,8 @@ def test_validation_errors(refs, case_name, match):
 
 
 def test_pipeline_refuses_a_quantised_trunk():
-    sr = RRDBNet(num_block=2, num_feat=8, num_grow_ch=8)
-    sr.quantize = True
-    with pytest.raises(NotImplementedError, match="item 15"):
+    sr = RRDBNet(num_block=2, num_feat=8, num_grow_ch=8, quantize=True)
+    with pytest.raises(NotImplementedError, match="JAX package refuses it too"):
         rrdb_pipeline_features(sr, torch.zeros(1, 3, 8, 8), None)
 
 

@@ -73,7 +73,9 @@ def test_port_has_the_slice_modules():
                  "data.stats", "data.legacy", "data.raster",
                  "tools.preprocess", "tools.products", "native",
                  "parallel.collectives", "parallel.mesh", "parallel.data",
-                 "parallel.spatial", "parallel.tensor", "parallel.pipeline"):
+                 "parallel.spatial", "parallel.tensor", "parallel.pipeline",
+                 "ops.s2d", "ops.quant", "models.dual_head",
+                 "examples.quickstart", "examples.parallel_modes"):
         assert f"srbh_tpu_torch.{name}" in mods
 
 
@@ -108,6 +110,7 @@ def test_port_has_no_try_statements():
 def _entry_points():
     from srbh_tpu_torch import entry
     from srbh_tpu_torch.data.pipeline import DataLoader
+    from srbh_tpu_torch.examples import parallel_modes, quickstart
     from srbh_tpu_torch.metrics import learned
     from srbh_tpu_torch.models.clip import CLIPVisionTransformer
     from srbh_tpu_torch.models.lpips import LPIPS
@@ -161,6 +164,8 @@ def _entry_points():
         "make_city_step(mesh=...)": lambda: make_city_step(
             torch.nn.Identity(), torch.nn.Identity(), mesh=object(),
             partition="spatial"),
+        "examples.quickstart.main": lambda: quickstart.main(),
+        "examples.parallel_modes.main": lambda: parallel_modes.main(),
     }
 
 
@@ -178,7 +183,9 @@ def _entry_points():
                                   "swinir_harness.main", "calculate_clipscore",
                                   "calculate_lpips", "StepTimer",
                                   "dryrun_multichip",
-                                  "make_city_step(mesh=...)"])
+                                  "make_city_step(mesh=...)",
+                                  "examples.quickstart.main",
+                                  "examples.parallel_modes.main"])
 def test_entry_points_need_a_card_by_default(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

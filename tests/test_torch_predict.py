@@ -208,12 +208,8 @@ def _cli_tree(root, models):
             "--sr_num_grow", "8"]
 
 
-def test_cli_main_reads_a_jax_npz_checkpoint(models, tmp_path, monkeypatch):
+def test_cli_main_reads_a_jax_npz_checkpoint(models, tmp_path):
     argv = _cli_tree(str(tmp_path), models)
-    monkeypatch.setenv("SRBH_PACKED", "1")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        cli.main(argv, device="cpu")
-    monkeypatch.delenv("SRBH_PACKED")
     got = cli.main(argv, device="cpu")
     respath = str(tmp_path / "logs" / "pred_20_citychn_large")
     assert got == [(os.path.join(respath, f"{c}_build.tif"),

@@ -158,14 +158,6 @@ def test_get_args_takes_the_flags_of_train_py():
     assert get_args("beijing", []).trainlist == "datalist_beijing_train_0.7.csv"
 
 
-@pytest.mark.parametrize("flag,value", [("remat", True)])
-def test_main_refuses_what_is_not_ported(data, flag, value):
-    cfg = make_cfg(data, "refused", 1)
-    setattr(cfg, flag, value)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(cfg, device="cpu")
-
-
 def test_main_fsdp_needs_a_process_group(data):
     cfg = make_cfg(data, "no_group", 1)
     cfg.fsdp = True
