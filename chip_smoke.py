@@ -28,8 +28,11 @@ its parallel modes:
 4. SwinIR classical-SR x4 at full width (embed 180, 6x6 RSTBs) through
    ``tools.swinir_harness``: the kernel path against the plain path on the
    same weights, the launch count of one forward pass (36), the time per
-   image, the kernel's device time per call from the profiler, and the card
-   against the CPU on a small input;
+   image, the kernel's device time per call from the profiler, the card
+   against the CPU on a small input, and the model in training mode with
+   its drop-path (rate 0.1) under ``torch.no_grad()``: the kernel path
+   against the plain path from one state of a generator on the card, with
+   the kernel's launches;
 5. the flagship height step: the tiny configuration on the card against the
    CPU, then the full-width RRDBNet-23 + EfficientNet-B4 step through
    ``make_city_step`` at batch 32 in float32 and bfloat16, through
@@ -50,7 +53,14 @@ its parallel modes:
    log-vars, every height-model parameter and some BatchNorm statistics
    changed, the frozen RRDBNet bit-unchanged, the checkpoint reloading to an
    identical state; ``trainer.main`` with ``--device_norm`` for 4 steps;
-   the launches of the hand kernel on both (none); train tiles/s of
+   ``trainer.main`` with ``--async_checkpoint`` for 2 epochs, each
+   written file (``checkpoint1``, ``checkpoint2``, ``checkpoint``) bit-equal
+   to CPU clones of the state taken as its ``save_checkpoint`` call
+   returned, then a third epoch resumed from it; the time the loop is
+   blocked by a synchronous and by an asynchronous save of the full-width
+   state (medians of 3), the payload's MiB and the train step's time while
+   a write is in flight, beside the card's name and power limit;
+   the launches of the hand kernel on these runs (none); train tiles/s of
    ``make_train_step`` alone on batches already on the card in float32 and
    bfloat16, and in float32 with ``device_aug`` and with ``norm`` too, with
    peak memory, idle share and leading kernels each, all through
@@ -531,7 +541,42 @@ def phase_swinir(wa, harness):
         f"(tol {SWIN_TOL:.0e} x {scale_cpu:.3f})")
     if not diff_cpu <= SWIN_TOL * scale_cpu:
         raise AssertionError("SwinIR on the card disagrees with the CPU")
-    return launches, diff, times, profiled_ms
+
+    # training mode with the preset's drop-path (0.1, spread over the 36
+    # blocks), without gradients: the kernel path and the plain path from
+    # one state of one generator on the card
+    model.train()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    start = gen.get_state()
+    outs = {}
+    for use_kernel in (True, False):
+        for m in attns:
+            m.use_kernel = use_kernel
+        gen.set_state(start)
+        wa.window_attention.launches = 0
+        with torch.no_grad():
+            outs[use_kernel] = model(x.permute(0, 3, 1, 2), generator=gen)
+        torch.cuda.synchronize()
+        if use_kernel:
+            train_launches = wa.window_attention.launches
+    model.eval()
+    for m in attns:
+        m.use_kernel = True
+    rates = [m.drop_path for m in model.modules() if hasattr(m, "drop_path")]
+    diff_train = (outs[True] - outs[False]).abs().max().item()
+    scale_train = max(1.0, outs[False].abs().max().item())
+    moved = (outs[True].permute(0, 2, 3, 1) - out_k).abs().max().item()
+    log(f"[swinir] train mode, drop_path_rate 0.1 ({len(rates)} blocks, rates "
+        f"{rates[0]:.4f}..{rates[-1]:.4f}), batch {SWIN_BATCH}, one generator "
+        f"state: kernel vs plain max_abs_diff={diff_train:.3e} (tol "
+        f"{SWIN_TOL:.0e} x {scale_train:.3f}); kernel launches {train_launches}; "
+        f"max |train - eval| {moved:.3e}")
+    if not (train_launches > 0 and diff_train <= SWIN_TOL * scale_train):
+        raise AssertionError("SwinIR train mode: kernel path disagrees with the "
+                             "plain path, or the kernel was not launched")
+    if not (moved > 0 and torch.isfinite(outs[True]).all()):
+        raise AssertionError("SwinIR train mode: drop-path changed nothing")
+    return launches, diff, times, profiled_ms, train_launches
 
 
 def phase_flagship(entry, make_city_step, smi):
@@ -912,6 +957,159 @@ def time_loader(cfg, smi):
     return timed
 
 
+ASYNC_EPOCHS, SAVE_REPEATS = 2, 3
+
+
+def _host_state(state):
+    """CPU clones of the model's, the optimizer's and the log-vars' tensors."""
+    opt = state.optimizer.state_dict()["state"]
+    return {"model": {k: v.detach().cpu().clone()
+                      for k, v in state.model.state_dict().items()},
+            "log_vars": state.log_vars.detach().cpu().clone(),
+            "optimizer": {i: {k: torch.as_tensor(v).detach().cpu().clone()
+                              for k, v in st.items()} for i, st in opt.items()},
+            "step": state.step}
+
+
+def _differing(payload, clone):
+    """Names of the tensors in which a checkpoint payload and a clone differ."""
+    bad = [k for k, v in clone["model"].items()
+           if not torch.equal(payload["model"][k], v)]
+    bad += [f"optimizer {i}.{k}" for i, st in clone["optimizer"].items()
+            for k, v in st.items()
+            if not torch.equal(payload["optimizer"]["state"][i][k], v)]
+    if not torch.equal(payload["log_vars"], clone["log_vars"]):
+        bad.append("log_vars")
+    if payload["step"] != clone["step"]:
+        bad.append("step")
+    return bad
+
+
+def check_async_checkpoints(wa, train_main, cfg, root):
+    """``trainer.main`` at full width for ``ASYNC_EPOCHS`` epochs with
+    ``--async_checkpoint``, each ``save_checkpoint`` call made with
+    ``snapshot_every=1`` (every epoch leaves ``checkpoint{epoch}``) and
+    recorded by CPU clones of the state taken as the call returns. Training
+    goes on while the thread writes; after ``main`` (which joins the last
+    write) each ``checkpoint{epoch}``, and ``checkpoint`` as the last, must
+    equal its clone bit for bit. Then one epoch resumed from the file."""
+    from srbh_tpu_torch.train import trainer
+
+    cfg_a = dataclasses.replace(cfg, maxepoch=ASYNC_EPOCHS, async_checkpoint=True,
+                                logdir=os.path.join(root, "logs_async"))
+    clones, save = {}, trainer.save_checkpoint
+
+    def recording(logdir, state, epoch, best_rmse, snapshot_every=5,
+                  is_best=False, async_save=False):
+        t0 = time.perf_counter()
+        path = save(logdir, state, epoch, best_rmse, snapshot_every=1,
+                    is_best=is_best, async_save=async_save)
+        blocked = 1e3 * (time.perf_counter() - t0)
+        written = os.path.exists(os.path.join(logdir, f"checkpoint{epoch}"))
+        clones[epoch] = dict(_host_state(state), blocked_ms=blocked,
+                             written_at_return=written, async_save=async_save)
+        return path
+
+    wa.window_attention.launches = 0
+    trainer.save_checkpoint = recording
+    try:
+        state = train_main(cfg_a, max_steps_per_epoch=TRAIN_STEPS, device="cuda")
+    finally:
+        trainer.save_checkpoint = save
+    launches = wa.window_attention.launches
+    files = {e: f"checkpoint{e}" for e in clones}
+    files["last"] = "checkpoint"
+    report = {}
+    for e, name in files.items():
+        clone = clones[ASYNC_EPOCHS if e == "last" else e]
+        payload = torch.load(os.path.join(cfg_a.logdir, name), map_location="cpu",
+                             weights_only=True)
+        bad = _differing(payload, clone)
+        report[name] = len(bad)
+        if bad:
+            raise AssertionError(f"async checkpoint {name} differs from the state "
+                                 f"at its call: {bad[:5]}")
+    went_on = sum(not torch.equal(v, clones[ASYNC_EPOCHS]["model"][k])
+                  for k, v in clones[1]["model"].items())
+    log(f"[train] trainer.main --async_checkpoint, {ASYNC_EPOCHS} epochs of "
+        f"{TRAIN_STEPS} steps: saves {[clones[e]['async_save'] for e in sorted(clones)]} "
+        f"asynchronous; loop blocked {[round(clones[e]['blocked_ms'], 1) for e in sorted(clones)]}"
+        f" ms; checkpoint{{epoch}} written when the call returned: "
+        f"{[clones[e]['written_at_return'] for e in sorted(clones)]}; tensors "
+        f"differing from the clone at each call: {report}; tensors epoch 2 "
+        f"changed after epoch 1's save: {went_on}; window_attention launches {launches}")
+    if state.step != ASYNC_EPOCHS * TRAIN_STEPS or not all(
+            clones[e]["async_save"] for e in clones) or not went_on:
+        raise AssertionError("async trainer run: wrong step count, a synchronous "
+                             "save, or no training after the first save")
+    cfg_a.maxepoch = ASYNC_EPOCHS + 1
+    resumed = train_main(cfg_a, max_steps_per_epoch=TRAIN_STEPS, device="cuda")
+    log(f"[train] resumed from the asynchronous checkpoint of epoch "
+        f"{ASYNC_EPOCHS}: step {resumed.step}")
+    if resumed.step != (ASYNC_EPOCHS + 1) * TRAIN_STEPS:
+        raise AssertionError(f"async resume: step {resumed.step}")
+    return resumed, launches
+
+
+def time_checkpoint_saves(state, cfg, root, smi):
+    """How long the training loop waits for a save of the full-width state:
+    ``SAVE_REPEATS`` synchronous saves and as many asynchronous ones (each
+    joined before the next), medians; and the train step's time while an
+    asynchronous write is in flight against without one (the writing
+    thread's pickling takes the GIL from the loop's Python)."""
+    from srbh_tpu_torch.train import checkpoint as ckpt
+    from srbh_tpu_torch.train.steps import make_train_step
+
+    logdir = os.path.join(root, "logs_blocked")
+    os.makedirs(logdir)
+    step = make_train_step(state.model, state.sr_model, seed=cfg.seed, device="cuda")
+    batch = {k: torch.as_tensor(v).cuda()
+             for k, v in train_batch(np.random.default_rng(13), TRAIN_BATCH).items()}
+
+    def timed_step():
+        t0 = time.perf_counter()
+        step(state, batch, 1e-4)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0)
+
+    for _ in range(2):
+        timed_step()
+    alone = [timed_step() for _ in range(5)]
+    blocked = {False: [], True: []}
+    during, commit = [], []
+    for async_save in (False,) * SAVE_REPEATS + (True,) * SAVE_REPEATS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = ckpt.save_checkpoint(logdir, state, 1, 1.0, async_save=async_save)
+        blocked[async_save].append(1e3 * (time.perf_counter() - t0))
+        while async_save and not ckpt._pending.done():
+            during.append(timed_step())
+        if async_save:
+            ckpt.wait_for_saves()
+            commit.append(1e3 * (time.perf_counter() - t0))
+    mib = os.path.getsize(path) / 2**20
+    out = {"payload_mib": mib,
+           "sync_blocked_ms": float(np.median(blocked[False])),
+           "async_blocked_ms": float(np.median(blocked[True])),
+           "async_commit_ms": float(np.median(commit)),
+           "step_ms_alone": float(np.median(alone)),
+           "step_ms_during_commit": float(np.median(during)) if during else None,
+           "steps_during_commits": len(during)}
+    log(f"[train] checkpoint save of the full-width state ({mib:.1f} MiB): loop "
+        f"blocked {out['sync_blocked_ms']:.1f} ms by a synchronous save, "
+        f"{out['async_blocked_ms']:.1f} ms by an asynchronous one (medians of "
+        f"{SAVE_REPEATS}: {[round(t, 1) for t in blocked[False]]} / "
+        f"{[round(t, 1) for t in blocked[True]]}); the asynchronous write done "
+        f"{out['async_commit_ms']:.1f} ms after the call; train step "
+        f"{out['step_ms_alone']:.1f} ms alone, "
+        + (f"{out['step_ms_during_commit']:.1f} ms" if during else "not measured")
+        + f" while a write is in flight ({len(during)} steps); {smi}")
+    if not out["async_blocked_ms"] < out["sync_blocked_ms"]:
+        raise AssertionError("an asynchronous save blocked the loop as long as "
+                             "a synchronous one")
+    return out
+
+
 def phase_train(wa, smi):
     from srbh_tpu_torch.train.config import TrainConfig
     from srbh_tpu_torch.train.trainer import build_models, main as train_main
@@ -976,9 +1174,14 @@ def phase_train(wa, smi):
         check_trained(normed, init_model, init_sr, record.scalars)
         del normed
         torch.cuda.empty_cache()
+        resumed, async_launches = check_async_checkpoints(wa, train_main, cfg, root)
+        saves = time_checkpoint_saves(resumed, cfg, root, smi)
+        del resumed
+        torch.cuda.empty_cache()
         loop = time_loader(cfg, smi)
     steps = time_steps(smi)
     return {"launches": launches, "device_aug_launches": aug_launches,
+            "async_launches": async_launches, "saves": saves,
             "steps": steps, "loop_ms": loop}
 
 
@@ -1997,7 +2200,7 @@ def long_tail_learned(smi):
         sd = tower.state_dict()
         want = learned.calculate_clipscore(img, img2, sd, model=tower, device="cpu")
         size = tower.image_size
-        x_cpu = learned.resize_nearest(torch.from_numpy(img).permute(2, 0, 1)[None] / 255,
+        x_cpu = learned._nearest_torch(torch.from_numpy(img).permute(2, 0, 1)[None] / 255,
                                        size)
         with torch.no_grad():
             f_cpu = tower(x_cpu)
@@ -3645,7 +3848,8 @@ def main() -> int:
     name, smi = phase_device()
     phase_build(wa)
     rows = phase_kernel(wa, shift_attn_mask, timing)
-    launches, swin_diff, swin_times, profiled_ms = phase_swinir(wa, swinir_harness)
+    (launches, swin_diff, swin_times, profiled_ms,
+     swin_train_launches) = phase_swinir(wa, swinir_harness)
     flagship = phase_flagship(entry, make_city_step, smi)
     train = phase_train(wa, smi)
     log(f"[train] summary {json.dumps(train)}")
@@ -3682,7 +3886,9 @@ def main() -> int:
                     " and :70 (_attn_kernel_masked)",
         "launches": launches,
         "launches_by_path": {"swinir_forward": launches,
+                             "swinir_train_drop_path": swin_train_launches,
                              "train": train["launches"],
+                             "train_async_checkpoint": train["async_launches"],
                              "train_device_norm": train["device_aug_launches"],
                              "city": city["launches"],
                              "main_test": entry_points["sequence"]["launches"],

@@ -550,15 +550,16 @@ def lpips_state_dict(variables: Mapping) -> StateDict:
     """LPIPS-alex: ``net.slice{s}.{i}`` (torchvision's ``features``
     indices), ``lin{t}.model.1.weight`` and lpips' ``scaling_layer``
     constants."""
-    from srbh_tpu_torch.models.lpips import _ALEX_CONVS, _SLICES, SCALE, SHIFT
+    from srbh_tpu_torch.models.lpips import (
+        _ALEX_CONVS,
+        scaling_state_dict,
+        trunk_conv_name,
+    )
 
     p = variables["params"]
-    sd: StateDict = {
-        "scaling_layer.shift": torch.tensor(SHIFT).view(1, 3, 1, 1),
-        "scaling_layer.scale": torch.tensor(SCALE).view(1, 3, 1, 1)}
+    sd: StateDict = scaling_state_dict()
     for t, (idx, *_rest) in enumerate(_ALEX_CONVS):
-        s = next(s for s, (a, b) in enumerate(_SLICES, 1) if a <= idx < b)
-        _conv(sd, f"net.slice{s}.{idx}", p["net"][f"conv{t}"])
+        _conv(sd, trunk_conv_name(idx), p["net"][f"conv{t}"])
         _conv(sd, f"lin{t}.model.1", p[f"lin{t}"])
     return sd
 

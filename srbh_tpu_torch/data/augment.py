@@ -1,8 +1,8 @@
 """Joint image/mask training augmentation, in numpy (no OpenCV).
 
-The port's ``augment_pair_lowres`` of ``srbh_tpu/data/augment.py:79-115``:
-the reference's albumentations pipeline (BH_loader.py:17-28), each step
-with p=0.5,
+The port's ``augment_pair`` and ``augment_pair_lowres`` of
+``srbh_tpu/data/augment.py:35-115``: the reference's albumentations
+pipeline (BH_loader.py:17-28), each step with p=0.5,
 
 * ``Flip``: vertical, horizontal or both (cv2 codes 0 / 1 / -1),
 * ``RandomGridShuffle(2, 2)``: the four quadrants permuted,
@@ -10,14 +10,17 @@ with p=0.5,
   ``(w/2 - 0.5, h/2 - 0.5)`` (``cv2.getRotationMatrix2D``), BORDER_REFLECT_101,
   bilinear for the image and nearest for the mask,
 
-fused with the dataset's x4-nearest-up / x0.25-down of the image. Flips and
-shuffles are exact index permutations. The rotation is computed in float32
-as the JAX package's float twin does (``srbh_tpu/ops/device_aug.py``), not
+at full resolution (``augment_pair``: :func:`random_flip`, the shuffle,
+:func:`random_rotate`) or fused with the dataset's x4-nearest-up /
+x0.25-down of the image (``augment_pair_lowres``). Flips and shuffles are
+exact index permutations. The image's rotation is computed in float32 as
+the JAX package's float twin does (``srbh_tpu/ops/device_aug.py``), not
 with OpenCV's fixed-point weights, so it agrees with cv2 to about 1 % of the
-value range (``tests/test_torch_data.py``). The random draws come in the
-same order and types as the JAX package's, so a generator ends in the same
-state after either. ``augment_lrhr_pair`` does the same for the SR
-finetune's LR / HR pairs.
+value range (``tests/test_torch_data.py``). The mask's nearest rotation is
+OpenCV 5.0's own rule (:func:`rotate_mask_nearest`), equal to cv2's output.
+The random draws come in the same order and types as the JAX package's, so
+a generator ends in the same state after either. ``augment_lrhr_pair`` does
+the same for the SR finetune's LR / HR pairs.
 """
 from __future__ import annotations
 
@@ -71,15 +74,43 @@ def _source(angle: float, h: int, w: int, ys: np.ndarray, xs: np.ndarray):
     return cy + b * dx + a * dy, cx + a * dx - b * dy
 
 
+def _inverse_rotation(angle: float, h: int, w: int) -> np.ndarray:
+    """The (2, 3) map from destination to source pixels of ``cv2.warpAffine(
+    img, cv2.getRotationMatrix2D((w/2 - 0.5, h/2 - 0.5), angle, 1))``: the
+    matrix and its inverse in float64 as OpenCV forms them, then float32."""
+    t = angle * (math.pi / 180.0)
+    a, b = math.cos(t), math.sin(t)
+    cx, cy = w / 2 - 0.5, h / 2 - 0.5
+    m = [a, b, (1 - a) * cx - b * cy, -b, a, b * cx + (1 - a) * cy]
+    d = m[0] * m[4] - m[1] * m[3]
+    d = 1.0 / d if d != 0 else 0.0
+    m[0], m[4] = m[4] * d, m[0] * d
+    m[1], m[3] = m[1] * -d, m[3] * -d
+    m[2], m[5] = (-m[0] * m[2] - m[1] * m[5], -m[3] * m[2] - m[4] * m[5])
+    return np.asarray(m, np.float64).reshape(2, 3).astype(np.float32)
+
+
 def rotate_mask_nearest(mask: np.ndarray, angle: float) -> np.ndarray:
-    """Nearest-neighbour rotation of an (H, W) mask, BORDER_REFLECT_101."""
-    h, w = mask.shape
-    ys = np.arange(h, dtype=np.float32)[:, None]
-    xs = np.arange(w, dtype=np.float32)[None, :]
-    sy, sx = _source(angle, h, w, ys, xs)
-    yi = _reflect101(np.floor(sy + np.float32(0.5)).astype(np.int64), h)
-    xi = _reflect101(np.floor(sx + np.float32(0.5)).astype(np.int64), w)
-    return mask[yi, xi]
+    """Nearest-neighbour rotation of an (H, W) or (H, W, C) mask,
+    BORDER_REFLECT_101, equal to OpenCV 5.0's ``warpAffine(INTER_NEAREST)``
+    of uint8, uint16 and float32 masks. Its kernel takes float32 source
+    coordinates ``x * m0 + (y * m1 + m2)``, the first product fused, in
+    blocks of 16 columns, ``(x * m0 + y * m1) + m2`` with the first sum
+    fused in the last ``W mod 16`` columns, and rounds them half to even."""
+    h, w = mask.shape[:2]
+    m = _inverse_rotation(angle, h, w).astype(np.float64)
+    f32 = np.float32
+    xs = np.arange(w, dtype=np.float64)[None, :]
+    ys = np.arange(h, dtype=np.float64)[:, None]
+    block = xs < (w // 16) * 16
+    src = []
+    for r in (0, 1):
+        xm = xs * m[r, 0]  # exact in float64: one rounding below, as an fma
+        ym = (ys * m[r, 1]).astype(f32).astype(np.float64)
+        body = xm + (ym + m[r, 2]).astype(f32)
+        tail = (xm + ym).astype(f32).astype(np.float64) + m[r, 2]
+        src.append(np.rint(np.where(block, body, tail).astype(f32)).astype(np.int64))
+    return mask[_reflect101(src[1], h), _reflect101(src[0], w)]
 
 
 def rotate_image_lowres(img_lr: np.ndarray, angle: float,
@@ -106,6 +137,35 @@ def rotate_image_lowres(img_lr: np.ndarray, angle: float,
     top = v00 + fx * (v01 - v00)
     bot = v10 + fx * (v11 - v10)
     return (top + fy * (bot - top)).astype(img_lr.dtype)
+
+
+def random_flip(rng: np.random.Generator, img: np.ndarray, mask: np.ndarray
+                ) -> Tuple[np.ndarray, np.ndarray]:
+    """Both flipped by one cv2 code drawn from {-1, 0, 1}."""
+    d = int(rng.integers(-1, 2))
+    return flip(img, d), flip(mask, d)
+
+
+def random_rotate(rng: np.random.Generator, img: np.ndarray, mask: np.ndarray,
+                  limit: float = 90.0) -> Tuple[np.ndarray, np.ndarray]:
+    """Both rotated by one angle drawn from [-limit, limit]: the (H, W, C)
+    image bilinear, the mask nearest."""
+    angle = float(rng.uniform(-limit, limit))
+    return rotate_image_lowres(img, angle, 1), rotate_mask_nearest(mask, angle)
+
+
+def augment_pair(rng: np.random.Generator, img: np.ndarray, mask: np.ndarray
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """Flip, grid shuffle and rotation, each with p=0.5, of an (H, W, C)
+    image and its (H, W) mask at one resolution."""
+    if rng.random() < 0.5:
+        img, mask = random_flip(rng, img, mask)
+    if rng.random() < 0.5:
+        order = rng.permutation(4)
+        img, mask = grid_shuffle_2x2(img, order), grid_shuffle_2x2(mask, order)
+    if rng.random() < 0.5:
+        img, mask = random_rotate(rng, img, mask)
+    return img, mask
 
 
 def augment_pair_lowres(rng: np.random.Generator, img_lr: np.ndarray,

@@ -127,7 +127,7 @@ def _assigned(build, state_dict: Mapping, device):
     return model.to(device, torch.float32).eval()
 
 
-def resize_nearest(x: torch.Tensor, size: int) -> torch.Tensor:
+def _nearest_torch(x: torch.Tensor, size: int) -> torch.Tensor:
     """torch's nearest rule, ``src = floor(dst * float32(in / out))``, to a
     square ``size`` (NCHW); a no-op at that size already."""
     if x.shape[2] == size and x.shape[3] == size:
@@ -146,7 +146,7 @@ def _prep(img, device, size: Optional[int] = None) -> torch.Tensor:
     if x.ndim == 2:
         x = x[..., None]
     x = _rgb(x.permute(2, 0, 1)[None])
-    return x if size is None else resize_nearest(x, size)
+    return x if size is None else _nearest_torch(x, size)
 
 
 def _cosine(f1, f2) -> float:
@@ -178,7 +178,7 @@ def calculate_clipscore_pt(imgs, imgs2, state_dict=None,
     model = _clip_tower(model, _PT_ALIASES.get(clip_model, clip_model),
                         state_dict, imgs.device)
     size = model.image_size
-    prep = lambda x: resize_nearest(_rgb(x.float()), size)  # noqa: E731
+    prep = lambda x: _nearest_torch(_rgb(x.float()), size)  # noqa: E731
     return _cosine(model(prep(imgs)), model(prep(imgs2)))
 
 

@@ -20,10 +20,15 @@ Counterpart of ``srbh_tpu/models/clip.py`` (the encoders of
 
 The JAX package's attention is plain ``einsum`` + ``softmax``; here it is
 ``F.scaled_dot_product_attention`` with its default 1/sqrt(d) scale.
+
+:func:`convert_clip_visual` and :func:`convert_siglip_visual` take a
+published state dict (a whole CLIP model's, or its image tower's under
+``visual.`` / ``visual.trunk.``) and return the towers' own state dicts: the
+keys the JAX package's converters read, without the prefix.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Mapping, Optional
 
 import torch
 import torch.nn.functional as F
@@ -207,3 +212,60 @@ class MAPVisionTransformer(nn.Module):
         for blk in self.blocks:
             x = blk(x)
         return self.attn_pool(self.norm(x))
+
+
+def _strip(sd: Mapping, prefixes) -> dict:
+    """``sd`` with the first matching prefix cut off each key, as tensors."""
+    out = {}
+    for k, v in sd.items():
+        for pre in prefixes:
+            if k.startswith(pre):
+                k = k[len(pre):]
+                break
+        out[k] = torch.as_tensor(v)
+    return out
+
+
+def convert_clip_visual(sd: Mapping, layers: int = 12) -> dict:
+    """An OpenAI CLIP / open_clip state dict, with or without the
+    ``visual.`` prefix, -> :class:`CLIPVisionTransformer`'s state dict of
+    ``layers`` blocks (``ln_pre`` only where the file has it: CLIPA's
+    have none). The text tower and other keys are dropped; a missing key
+    raises ``KeyError``."""
+    sd = _strip(sd, ("visual.",))
+    keys = ["conv1.weight", "class_embedding", "positional_embedding",
+            "ln_post.weight", "ln_post.bias", "proj"]
+    if "ln_pre.weight" in sd:
+        keys += ["ln_pre.weight", "ln_pre.bias"]
+    for i in range(layers):
+        t = f"transformer.resblocks.{i}."
+        keys += [t + n for n in (
+            "ln_1.weight", "ln_1.bias", "ln_2.weight", "ln_2.bias",
+            "attn.in_proj_weight", "attn.in_proj_bias",
+            "attn.out_proj.weight", "attn.out_proj.bias",
+            "mlp.c_fc.weight", "mlp.c_fc.bias",
+            "mlp.c_proj.weight", "mlp.c_proj.bias")]
+    return {k: sd[k] for k in keys}
+
+
+def convert_siglip_visual(sd: Mapping, layers: int = 27) -> dict:
+    """A timm / open_clip SigLIP state dict, with or without the
+    ``visual.trunk.`` (or ``trunk.``) prefix, -> :class:`MAPVisionTransformer`'s
+    state dict of ``layers`` blocks: ``pos_embed`` as (1, N, C) whether
+    stored so (timm) or as (N, C), the ``attn_pool.latent`` as (1, 1, C).
+    Other keys are dropped; a missing key raises ``KeyError``."""
+    sd = _strip(sd, ("visual.trunk.", "trunk."))
+    out = {"pos_embed": sd["pos_embed"].reshape(1, -1, sd["pos_embed"].shape[-1]),
+           "attn_pool.latent": sd["attn_pool.latent"].reshape(1, 1, -1)}
+    keys = ["patch_embed.proj.weight", "patch_embed.proj.bias",
+            "norm.weight", "norm.bias"]
+    keys += [f"attn_pool.{n}.{p}" for n in ("q", "kv", "proj", "norm",
+                                            "mlp.fc1", "mlp.fc2")
+             for p in ("weight", "bias")]
+    for i in range(layers):
+        keys += [f"blocks.{i}.{n}.{p}" for n in ("norm1", "norm2", "attn.qkv",
+                                                 "attn.proj", "mlp.fc1",
+                                                 "mlp.fc2")
+                 for p in ("weight", "bias")]
+    out.update({k: sd[k] for k in keys})
+    return out

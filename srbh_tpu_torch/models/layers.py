@@ -16,6 +16,7 @@ import contextlib
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
@@ -28,6 +29,10 @@ def tconv(in_ch: int, out_ch: int, kernel_size: int = 3, stride: int = 1,
     """Conv with torch padding semantics (``k//2`` both sides)."""
     return nn.Conv2d(in_ch, out_ch, kernel_size, stride, kernel_size // 2,
                      bias=bias)
+
+
+def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
+    return F.leaky_relu(x, negative_slope)
 
 
 def TorchBatchNorm(num_features: int, momentum: float = 0.9,
@@ -204,3 +209,13 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
             p.copy_(torch.empty(p.shape, device=dev).normal_(
                 0.0, 0.02, generator=generator).clamp_(-0.04, 0.04))
     return module
+
+
+def param_count(params) -> int:
+    """Number of parameters of a module (its ``parameters()``), a state dict
+    or an iterable of tensors."""
+    if isinstance(params, nn.Module):
+        params = params.parameters()
+    elif isinstance(params, dict):
+        params = params.values()
+    return sum(p.numel() for p in params)

@@ -11,11 +11,12 @@ conv without bias, the spatial mean, summed over the taps.
 State-dict names are lpips' own: ``scaling_layer.shift`` / ``.scale``,
 ``net.slice{s}.{i}.*`` with torchvision's ``features`` indices (convs at 0,
 3, 6, 8 and 10) and ``lin{t}.model.1.weight`` (index 0 is the Dropout,
-identity in eval mode). No pretrained weights are in the repository.
+identity in eval mode). No pretrained weights are in the repository;
+:func:`convert_lpips_alex` takes lpips' or torchvision's files.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import List, Mapping
 
 import torch
 from torch import nn
@@ -105,3 +106,38 @@ class LPIPS(nn.Module):
             d = getattr(self, f"lin{t}")((_unit(a) - _unit(b)) ** 2)
             total = total + d.mean(dim=(1, 2, 3))
         return total
+
+
+def trunk_conv_name(idx: int) -> str:
+    """The state-dict name of the conv at torchvision ``features`` index
+    ``idx``: ``net.slice{s}.{idx}``."""
+    s = next(s for s, (a, b) in enumerate(_SLICES, 1) if a <= idx < b)
+    return f"net.slice{s}.{idx}"
+
+
+def scaling_state_dict() -> dict:
+    """lpips' scaling constants under their state-dict names."""
+    return {f"scaling_layer.{k}": v
+            for k, v in ScalingLayer().state_dict().items()}
+
+
+def convert_lpips_alex(sd: Mapping) -> dict:
+    """An ``lpips.LPIPS(net='alex')`` state dict (``net.slice{s}.{i}.*``,
+    ``lin{t}.model.1.weight``), or a bare torchvision AlexNet's
+    (``features.{i}.*``), -> :class:`LPIPS`'s state dict, with lpips'
+    scaling constants. A trunk-only file gives no ``lin`` heads: load it with
+    ``strict=False`` beside heads from elsewhere. Other keys are dropped; a
+    missing trunk conv raises ``KeyError``."""
+    out = scaling_state_dict()
+    for t, (idx, *_rest) in enumerate(_ALEX_CONVS):
+        name = trunk_conv_name(idx)
+        src = next((pre for pre in (name, f"features.{idx}")
+                    if f"{pre}.weight" in sd), None)
+        if src is None:
+            raise KeyError(f"no trunk weights for conv{t} (features.{idx})")
+        for p in ("weight", "bias"):
+            out[f"{name}.{p}"] = torch.as_tensor(sd[f"{src}.{p}"])
+        lin = f"lin{t}.model.1.weight"
+        if lin in sd:
+            out[lin] = torch.as_tensor(sd[lin])
+    return out

@@ -22,7 +22,16 @@ State-dict names are the reference's (``layers.{l}.residual_group.blocks.
 reference's derived buffers ``relative_position_index`` and ``attn_mask`` are
 recomputed here and are not part of the state dict.
 
-Inference only: drop-path, which only training uses, is not ported.
+Drop-path (stochastic depth, ``srbh_tpu/models/swinir.py:173-184``):
+``drop_path_rate`` (0.1, the reference's default) is spread over the blocks
+by ``np.linspace(0, rate, sum(depths))``, and in training mode each block
+zeroes each sample's attention and MLP branch with that probability and
+scales the kept ones by ``1 / (1 - rate)``. The draws come from the
+``torch.Generator`` passed to :meth:`SwinIR.forward`, on the input's
+device; one is required in training mode at a rate above 0. In eval mode,
+and at rate 0, the blocks draw nothing. The Hopper kernel has no backward,
+so a differentiable training step builds the model with
+``use_kernel=False``.
 """
 from __future__ import annotations
 
@@ -85,6 +94,17 @@ def shift_attn_mask(h: int, w: int, ws: int, shift: int) -> np.ndarray:
     return np.where(diff != 0, -100.0, 0.0).astype(np.float32)
 
 
+def drop_path(x: torch.Tensor, rate: float,
+              generator: torch.Generator) -> torch.Tensor:
+    """Each sample of ``x`` (B, ...) kept with probability ``1 - rate`` and
+    scaled by ``1 / (1 - rate)``, else zeroed: a Bernoulli draw of shape
+    (B, 1, ..., 1) from ``generator``."""
+    keep = 1.0 - rate
+    mask = torch.empty((x.shape[0],) + (1,) * (x.ndim - 1), dtype=x.dtype,
+                       device=x.device).bernoulli_(keep, generator=generator)
+    return x / keep * mask
+
+
 @functools.lru_cache(maxsize=8)
 def _device_shift_mask(h: int, w: int, ws: int, shift: int,
                        device: torch.device) -> torch.Tensor:
@@ -140,12 +160,15 @@ class Mlp(nn.Module):
 
 class SwinTransformerBlock(nn.Module):
     """Swin block on (B, H, W, C) features. ``img_size`` fixes the window
-    clamp and the shift decision."""
+    clamp and the shift decision; ``drop_path`` is the block's stochastic
+    depth rate in training mode."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int = 7,
                  shift_size: int = 0, mlp_ratio: float = 4.0,
-                 img_size: int = 64, use_kernel: bool = True):
+                 img_size: int = 64, use_kernel: bool = True,
+                 drop_path: float = 0.0):
         super().__init__()
+        self.drop_path = drop_path
         self.window_size = min(window_size, img_size)
         self.shift_size = 0 if img_size <= window_size else shift_size
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
@@ -154,7 +177,7 @@ class SwinTransformerBlock(nn.Module):
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
-    def forward(self, x):
+    def forward(self, x, generator: Optional[torch.Generator] = None):
         b, h, w, c = x.shape
         ws, shift = self.window_size, self.shift_size
         shortcut = x
@@ -167,26 +190,36 @@ class SwinTransformerBlock(nn.Module):
         x = window_reverse(attn, ws, h, w)
         if shift > 0:
             x = torch.roll(x, (shift, shift), dims=(1, 2))
-        x = shortcut + x
-        return x + self.mlp(self.norm2(x))
+        x = shortcut + self._drop_path(x, generator)
+        return x + self._drop_path(self.mlp(self.norm2(x)), generator)
+
+    def _drop_path(self, x, generator):
+        if not self.training or self.drop_path == 0.0:
+            return x
+        if generator is None:
+            raise ValueError("SwinIR drop-path in training mode needs a "
+                             "torch.Generator: pass generator= to forward")
+        return drop_path(x, self.drop_path, generator)
 
 
 class BasicLayer(nn.Module):
     """The Swin blocks of one RSTB (``residual_group``); odd blocks shift."""
 
     def __init__(self, dim: int, depth: int, num_heads: int, window_size: int,
-                 mlp_ratio: float, img_size: int, use_kernel: bool):
+                 mlp_ratio: float, img_size: int, use_kernel: bool,
+                 drop_paths: Sequence[float] = ()):
         super().__init__()
         self.blocks = nn.ModuleList(
             SwinTransformerBlock(
                 dim, num_heads, window_size,
                 shift_size=0 if i % 2 == 0 else window_size // 2,
-                mlp_ratio=mlp_ratio, img_size=img_size, use_kernel=use_kernel)
+                mlp_ratio=mlp_ratio, img_size=img_size, use_kernel=use_kernel,
+                drop_path=drop_paths[i] if i < len(drop_paths) else 0.0)
             for i in range(depth))
 
-    def forward(self, x):
+    def forward(self, x, generator: Optional[torch.Generator] = None):
         for block in self.blocks:
-            x = block(x)
+            x = block(x, generator)
         return x
 
 
@@ -195,10 +228,12 @@ class RSTB(nn.Module):
 
     def __init__(self, dim: int, depth: int, num_heads: int, window_size: int,
                  mlp_ratio: float = 4.0, resi_connection: str = "1conv",
-                 img_size: int = 64, use_kernel: bool = True):
+                 img_size: int = 64, use_kernel: bool = True,
+                 drop_paths: Sequence[float] = ()):
         super().__init__()
         self.residual_group = BasicLayer(dim, depth, num_heads, window_size,
-                                         mlp_ratio, img_size, use_kernel)
+                                         mlp_ratio, img_size, use_kernel,
+                                         drop_paths)
         if resi_connection == "1conv":
             self.conv = tconv(dim, dim, 3)
         elif resi_connection == "3conv":
@@ -210,9 +245,9 @@ class RSTB(nn.Module):
         else:
             raise ValueError(f"unknown resi_connection {resi_connection!r}")
 
-    def forward(self, x):
+    def forward(self, x, generator: Optional[torch.Generator] = None):
         """x: (B, H, W, C)."""
-        y = self.residual_group(x).permute(0, 3, 1, 2)
+        y = self.residual_group(x, generator).permute(0, 3, 1, 2)
         return self.conv(y).permute(0, 2, 3, 1) + x
 
 
@@ -227,6 +262,7 @@ class SwinIR(nn.Module):
                  embed_dim: int = 96, depths: Sequence[int] = (6, 6, 6, 6),
                  num_heads: Sequence[int] = (6, 6, 6, 6),
                  window_size: int = 7, mlp_ratio: float = 4.0,
+                 drop_path_rate: float = 0.1,
                  upscale: int = 2, img_range: float = 1.0,
                  upsampler: str = "", resi_connection: str = "1conv",
                  num_feat: int = 64,
@@ -241,10 +277,13 @@ class SwinIR(nn.Module):
                              persistent=False)
         self.conv_first = tconv(in_chans, embed_dim, 3)
         self.patch_embed = PatchEmbed(embed_dim)
+        dpr = [float(v) for v in np.linspace(0, drop_path_rate, sum(depths))]
+        starts = np.cumsum([0, *depths])
         self.layers = nn.ModuleList(
             RSTB(embed_dim, depth, heads, window_size, mlp_ratio,
-                 resi_connection, img_size, use_kernel)
-            for depth, heads in zip(depths, num_heads))
+                 resi_connection, img_size, use_kernel,
+                 dpr[start: start + depth])
+            for depth, heads, start in zip(depths, num_heads, starts))
         self.norm = nn.LayerNorm(embed_dim, eps=1e-5)
         self.conv_after_body = tconv(embed_dim, embed_dim, 3)
         if upsampler == "pixelshuffle":
@@ -268,15 +307,16 @@ class SwinIR(nn.Module):
         else:
             raise ValueError(f"unknown upsampler {upsampler!r}")
 
-    def forward_features(self, x):
+    def forward_features(self, x, generator: Optional[torch.Generator] = None):
         """(B, C, H, W) -> (B, C, H, W) through the RSTBs."""
         f = self.patch_embed.norm(x.permute(0, 2, 3, 1))
         for layer in self.layers:
-            f = layer(f)
+            f = layer(f, generator)
         return self.norm(f).permute(0, 3, 1, 2)
 
-    def forward(self, x):
-        """x: (B, C, H, W) in [0, 1]; returns the (upscaled) image."""
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        """x: (B, C, H, W) in [0, 1]; returns the (upscaled) image. In
+        training mode drop-path draws from ``generator``."""
         h_in, w_in = x.shape[-2:]
         ws = self.window_size
         pad_h = (ws - h_in % ws) % ws
@@ -287,7 +327,7 @@ class SwinIR(nn.Module):
         x = (x - mean) * self.img_range
 
         feat = self.conv_first(x)
-        feat = self.conv_after_body(self.forward_features(feat)) + feat
+        feat = self.conv_after_body(self.forward_features(feat, generator)) + feat
         lrelu = lambda t: F.leaky_relu(t, 0.2)
         if self.upsampler == "pixelshuffle":
             out = self.conv_last(self.upsample(self.conv_before_upsample(feat)))

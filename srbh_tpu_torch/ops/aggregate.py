@@ -11,9 +11,12 @@ block sums of a validity mask.
 
 Block sums run over the trailing H, W in float32, as the JAX package's
 ``reduce_window``; the host dataset keeps its own float64 copy
-(``data/dataset.py``).
+(``data/dataset.py``). :func:`aggregate_mean` is the training form with its
+arguments bound.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -32,3 +35,8 @@ def aggregate(data: torch.Tensor, scale: float, valid_threshold: float = 0.0,
     data = data.float()
     valid = (data >= valid_threshold) if inclusive else (data > valid_threshold)
     return block_sum(data, step) / (block_sum(valid.float(), step) + eps)
+
+
+# the training path's form, aggregate_torch (aggregate_utils.py:29-41)
+aggregate_mean = functools.partial(aggregate, valid_threshold=0.0,
+                                   inclusive=True, eps=1e-10)

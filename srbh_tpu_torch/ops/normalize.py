@@ -8,7 +8,8 @@ row 0 is the per-band mean (meanstd) or min (minmax) and row 1 the std or
 max; for minmax the loader rewrites row 1 to ``max - min`` in-place and then
 clips the normalised tile to ``datarange=(0, 1)``.
 
-The helpers return the (offset, scale) pair; the dataset applies it.
+The helpers return the (offset, scale) pair; the dataset applies it, or
+:func:`normalize_tile`, which takes a numpy array or a tensor alike.
 """
 from __future__ import annotations
 
@@ -45,3 +46,15 @@ def norm_offsets(
     else:
         raise ValueError(f"unknown normmethod {method!r}")
     return offset, scale
+
+
+def normalize_tile(img, offset, scale,
+                   datarange: Optional[Tuple[float, float]] = (0.0, 1.0)):
+    """``(img - offset) / scale`` of an (..., C) channels-last tile (a numpy
+    array or a tensor), clipped to ``datarange`` as the train and test tiles
+    are (BH_loader.py:367-369); ``None`` skips the clip, as the whole-city
+    grid loader does (BH_loader.py:984-986)."""
+    x = (img - offset) / scale
+    if datarange is not None:
+        x = x.clip(datarange[0], datarange[1])
+    return x

@@ -6,14 +6,27 @@ epoch a snapshot ``checkpoint{epoch}``, and an improved validation RMSE
 ``model_best``. A checkpoint is one ``torch.save`` file holding ``epoch``,
 ``best_rmse``, ``step``, ``model`` (the height model's state dict, with the
 reference's names), ``log_vars`` and ``optimizer`` (the Adam state, so a
-resume continues exactly). It is written to ``<path>.tmp`` and renamed into
-place, synchronously.
+resume continues exactly), all as host tensors. It is written to
+``<path>.tmp`` and renamed into place.
+
+``save_checkpoint(..., async_save=True)`` (``srbh_tpu/train/checkpoint.py:
+71-135``) copies the state to the host before it returns, so the caller may
+step on at once: the live parameters and the Adam moments, which the next
+step updates in place, are never read again. Writing the file and copying
+it to ``checkpoint{epoch}`` / ``model_best`` then run on a background
+thread, which touches only those host copies and the file system. A second
+save first joins the one in flight; :func:`wait_for_saves` joins it too,
+and either re-raises a failed write as ``RuntimeError("async checkpoint
+save failed")``.
 
 In a process group every rank calls :func:`save_checkpoint` and the first
 writes: an FSDP2 state's sharded parameters and moments are gathered whole
-first (each a collective), so the file has the same form as a single
-process's, and :func:`restore_into_state` cuts a whole file back into the
-shards. A checkpoint moves between FSDP2, DDP and one process either way.
+first (each a collective, on the calling thread of every rank), so the file
+has the same form as a single process's, and :func:`restore_into_state`
+cuts a whole file back into the shards. A checkpoint moves between FSDP2,
+DDP and one process either way. After an asynchronous save only the first
+rank's :func:`wait_for_saves` knows that the files are written: another
+rank that reads them must first see that call return (a barrier after it).
 
 :func:`load_checkpoint` also reads the JAX package's ``.npz`` checkpoints
 (``srbh_tpu.train.convert.save_tree_npz``, read by
@@ -31,6 +44,7 @@ from __future__ import annotations
 
 import os
 import shutil
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
@@ -41,40 +55,87 @@ from srbh_tpu_torch import convert
 from srbh_tpu_torch.train.state import shard_like
 
 
+_pending: Optional[Future] = None  # the asynchronous save in flight
+
+
+def wait_for_saves() -> None:
+    """Block until the asynchronous save in flight, if any, has written its
+    files; re-raise its failure (a full disk must fail the run, not show up
+    at resume time as a missing checkpoint)."""
+    global _pending
+    if _pending is None:
+        return
+    done, _pending = _pending, None
+    err = done.exception()
+    if err is not None:
+        raise RuntimeError("async checkpoint save failed") from err
+
+
 def save_checkpoint(logdir: str, state, epoch: int, best_rmse: float,
-                    snapshot_every: int = 5, is_best: bool = False) -> str:
+                    snapshot_every: int = 5, is_best: bool = False,
+                    async_save: bool = False) -> str:
     """Write ``checkpoint`` (and ``checkpoint{epoch}``, ``model_best``) in
-    ``logdir``; returns the path of ``checkpoint``."""
-    payload = {
-        "epoch": int(epoch),
-        "best_rmse": float(best_rmse),
-        "step": int(state.step),
-        "model": whole(state.model.state_dict()),
-        "log_vars": state.log_vars.detach().cpu().clone(),
-        "optimizer": whole(state.optimizer.state_dict()),
-    }
+    ``logdir``; returns the path of ``checkpoint``. With ``async_save`` the
+    files are written on a background thread after this returns: call
+    :func:`wait_for_saves` before reading them."""
+    global _pending
+    wait_for_saves()  # serialise with the save in flight; raise its failure
+    model = whole(state.model.state_dict())
+    optimizer = whole(state.optimizer.state_dict())
     path = os.path.join(logdir, "checkpoint")
     if not dist.is_initialized() or dist.get_rank() == 0:
-        _save(payload, path)
-        if snapshot_every and epoch % snapshot_every == 0:
-            shutil.copyfile(path, os.path.join(logdir, f"checkpoint{epoch}"))
-        if is_best:
-            shutil.copyfile(path, os.path.join(logdir, "model_best"))
+        payload = {
+            "epoch": int(epoch),
+            "best_rmse": float(best_rmse),
+            "step": int(state.step),
+            "model": _host_copy(model),
+            "log_vars": _host_copy(state.log_vars),
+            "optimizer": _host_copy(optimizer),
+        }
+
+        def commit():
+            _save(payload, path)
+            if snapshot_every and epoch % snapshot_every == 0:
+                shutil.copyfile(path, os.path.join(logdir, f"checkpoint{epoch}"))
+            if is_best:
+                shutil.copyfile(path, os.path.join(logdir, "model_best"))
+
+        if async_save:
+            # one non-daemon worker, let go once it has written the files
+            pool = ThreadPoolExecutor(1, thread_name_prefix="checkpoint")
+            _pending = pool.submit(commit)
+            pool.shutdown(wait=False)
+        else:
+            commit()
     if dist.is_initialized():
         dist.barrier()
     return path
 
 
+def _tree_map(fn, tree):
+    """``fn`` on each leaf of a state dict (nested dicts and lists)."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
 def whole(tree):
-    """A state dict (nested dicts and lists) with each FSDP2 ``DTensor``
-    gathered whole (a collective: every rank calls it alike)."""
+    """A state dict with each FSDP2 ``DTensor`` gathered whole (a
+    collective: every rank calls it alike)."""
     from torch.distributed.tensor import DTensor
 
-    if isinstance(tree, dict):
-        return {k: whole(v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [whole(v) for v in tree]
-    return tree.full_tensor() if isinstance(tree, DTensor) else tree
+    return _tree_map(lambda t: t.full_tensor() if isinstance(t, DTensor)
+                     else t, tree)
+
+
+def _host_copy(tree):
+    """A state dict whose tensors are new host copies, detached: nothing in
+    it shares memory with the live state (``.cpu()`` of a CPU tensor would
+    return the tensor itself)."""
+    return _tree_map(lambda t: t.detach().to("cpu", copy=True)
+                     if isinstance(t, torch.Tensor) else t, tree)
 
 
 def _save(payload: dict, path: str) -> None:

@@ -28,9 +28,12 @@ sharded on every rank with the global batch's metrics; only rank 0 prints
 and writes.
 
 ``--remat`` recomputes the height model's 256^2 fusion stack in the
-backward pass (``SRRegressClsFeature(remat=True)``). ``save_opt_state`` and
-``async_checkpoint`` are accepted and change nothing: every checkpoint holds
-the optimizer state (exact resume) and is written synchronously.
+backward pass (``SRRegressClsFeature(remat=True)``). ``save_opt_state`` is
+accepted and changes nothing: every checkpoint holds the optimizer state
+(exact resume). ``--async_checkpoint`` writes each epoch's checkpoint on a
+background thread while training goes on (``train/checkpoint.py``);
+:func:`main` joins the last write before it returns, and before it or
+:func:`main_test` reads a checkpoint.
 """
 from __future__ import annotations
 
@@ -68,6 +71,7 @@ from srbh_tpu_torch.train.checkpoint import (
     load_checkpoint,
     restore_into_state,
     save_checkpoint,
+    wait_for_saves,
 )
 from srbh_tpu_torch.train.config import TrainConfig
 from srbh_tpu_torch.train.schedule import step_decay_lr
@@ -221,6 +225,7 @@ def main(cfg: TrainConfig, writer=None,
     if sr is not None and not load_sr_weights(cfg, sr):
         say("=> no SR checkpoint found; using random frozen features")
     start_epoch, best_rmse = 0, float("inf")
+    wait_for_saves()  # an earlier run's asynchronous save must be written
     payload = load_checkpoint(os.path.join(cfg.logdir, "checkpoint"))
     # only a fresh run starts its encoder from ImageNet weights: a resumed
     # run takes the encoder from its checkpoint
@@ -298,7 +303,8 @@ def main(cfg: TrainConfig, writer=None,
             is_best = val_rmses.avg < best_rmse
             best_rmse = min(val_rmses.avg, best_rmse)
         save_checkpoint(cfg.logdir, state, epoch, best_rmse,
-                        snapshot_every=5, is_best=is_best)
+                        snapshot_every=5, is_best=is_best,
+                        async_save=cfg.async_checkpoint)
         say(f"epoch {epoch}: lr {lr:.6f} train loss {losses.avg:.3f} "
             f"rmse {rmses.avg:.3f} | val rmse {val_rmses.avg:.3f}"
             f"{' *best*' if is_best else ''}")
@@ -311,6 +317,9 @@ def main(cfg: TrainConfig, writer=None,
             for k in range(log_vars.shape[0]):
                 writer.add_scalar(f"lossweight/w{k + 1}", float(log_vars[k]),
                                   epoch)
+    wait_for_saves()  # the last epoch's checkpoint is written on return
+    if cfg.async_checkpoint and dist.is_initialized():
+        dist.barrier()  # every rank returns once the first has written it
     if writer is not None:
         writer.close()
     return state
@@ -353,6 +362,7 @@ def main_test(cfg: TrainConfig, num_sample: int = 100, suffix: str = "",
     dev = resolve_device(device)
     _check_supported(cfg)
     path = os.path.join(cfg.logdir, cfg.checkpoint)
+    wait_for_saves()  # a checkpoint written asynchronously is read whole
     if not os.path.isfile(path) and os.path.isfile(path + ".npz"):
         path += ".npz"
     payload = load_checkpoint(path, cfg.encoder_name, cfg.isaggre,

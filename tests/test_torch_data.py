@@ -10,6 +10,12 @@
   ``tests/test_device_aug.py`` against cv2 (image max 0.03 / mean 0.004 of
   a [0, 1] range, mask agreement > 0.98); the generator ends in the same
   state.
+* ``augment_pair``, ``random_flip`` and ``random_rotate`` at full
+  resolution: flips, shuffles and every rotated mask equal the JAX
+  package's (cv2) exactly (``rotate_mask_nearest`` is OpenCV 5.0's rule,
+  held equal to ``cv2.warpAffine`` on uint8, uint16 and float32 masks of
+  one and three channels); the rotated image within the low-res rotation's
+  bound (max 0.03, mean 0.004); the generator ends in the same state.
 * ``S12GlobeDataset`` samples equal the JAX dataset's bit for bit without
   augmentation, and with it whenever the rotation branch does not fire.
 * The loader's batches come in the JAX ``DataLoader``'s order.
@@ -175,6 +181,59 @@ def test_augment_pair_lowres_matches_jax(seed):
     else:
         np.testing.assert_array_equal(gi, wi)
         np.testing.assert_array_equal(gm, wm)
+
+
+def _full_pair(seed, h=64, w=56):
+    rng = np.random.default_rng(seed)
+    return (rng.uniform(0, 1, (h, w, 3)).astype(np.float32),
+            rng.integers(0, 120, (h, w)).astype(np.uint8))
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.float32])
+@pytest.mark.parametrize("chans", [None, 3])
+def test_rotate_mask_nearest_equals_cv2(dtype, chans):
+    rng = np.random.default_rng(20)
+    for _ in range(12):
+        h, w = (int(v) for v in rng.integers(5, 140, 2))
+        shape = (h, w) if chans is None else (h, w, chans)
+        mask = rng.integers(0, 255, shape).astype(dtype)
+        angle = float(rng.uniform(-90, 90))
+        mat = cv2.getRotationMatrix2D((w / 2 - 0.5, h / 2 - 0.5), angle, 1.0)
+        want = jaug._warp(mask, mat, cv2.INTER_NEAREST)
+        np.testing.assert_array_equal(taug.rotate_mask_nearest(mask, angle), want)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_random_flip_and_rotate_match_jax(seed):
+    img, mask = _full_pair(seed + 200)
+    for fn in ("random_flip", "random_rotate"):
+        ra, rb = np.random.default_rng(seed), np.random.default_rng(seed)
+        gi, gm = getattr(taug, fn)(ra, img, mask)
+        wi, wm = getattr(jaug, fn)(rb, img, mask)
+        assert ra.bit_generator.state == rb.bit_generator.state
+        assert gi.dtype == wi.dtype and gm.dtype == wm.dtype
+        np.testing.assert_array_equal(gm, wm)
+        if fn == "random_flip":
+            np.testing.assert_array_equal(gi, wi)
+        else:
+            err = np.abs(gi - wi)
+            assert err.max() < 0.03 and err.mean() < 0.004, (err.max(), err.mean())
+
+
+@pytest.mark.parametrize("seed", range(12))
+def test_augment_pair_matches_jax(seed):
+    img, mask = _full_pair(seed + 300)
+    ra, rb = np.random.default_rng(seed), np.random.default_rng(seed)
+    gi, gm = taug.augment_pair(ra, img.copy(), mask.copy())
+    wi, wm = jaug.augment_pair(rb, img.copy(), mask.copy())
+    assert ra.bit_generator.state == rb.bit_generator.state
+    assert gi.shape == wi.shape and gi.dtype == wi.dtype
+    np.testing.assert_array_equal(gm, wm)
+    if _rotates(np.random.default_rng(seed)):
+        err = np.abs(gi - wi)
+        assert err.max() < 0.03 and err.mean() < 0.004, (err.max(), err.mean())
+    else:
+        np.testing.assert_array_equal(gi, wi)
 
 
 @pytest.fixture(scope="module")

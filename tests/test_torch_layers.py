@@ -1,7 +1,10 @@
 """The port's ops and shared layers against the JAX package's.
 
-Layout ops are exact (reshape / permute / repeat). Layers carry the JAX
-weights across and agree within 1e-5 (float32, small convolutions).
+Layout ops are exact (reshape / permute / repeat / gather), as are
+``leaky_relu``, ``param_count`` and ``normalize_tile`` on numpy tiles.
+Layers carry the JAX weights across and agree within 1e-5 (float32, small
+convolutions); ``aggregate_mean`` within 1e-6 relative (float32 block sums in
+another order), ``normalize_tile`` on tensors within 1e-6 relative.
 """
 import numpy as np
 import pytest
@@ -11,10 +14,14 @@ import jax
 import jax.numpy as jnp
 
 from srbh_tpu.models import layers as jlayers
+from srbh_tpu.ops.aggregate import aggregate_mean as jaggregate_mean
+from srbh_tpu.ops import normalize as jnormalize
 from srbh_tpu.ops import resize as jresize
 from srbh_tpu.ops import shuffle as jshuffle
 from srbh_tpu_torch import convert
 from srbh_tpu_torch.models import layers as tlayers
+from srbh_tpu_torch.ops.aggregate import aggregate_mean as taggregate_mean
+from srbh_tpu_torch.ops import normalize as tnormalize
 from srbh_tpu_torch.ops import resize as tresize
 from srbh_tpu_torch.ops import shuffle as tshuffle
 from test_torch_port_rules import _one_torch_thread  # noqa: F401 (autouse)
@@ -159,3 +166,65 @@ def test_init_weights_is_seeded():
         if k.endswith("conv1.weight"):
             assert not torch.equal(x, z)
             assert x.abs().max().item() <= (4 * 9) ** -0.5
+
+
+@pytest.mark.parametrize("out_h,out_w", [(7, 9), (10, 8), (3, 2), (15, 12)])
+def test_resize_nearest_matches_jax(out_h, out_w):
+    x = rand(2, 5, 4, 3, seed=7)
+    want = np.asarray(jresize.resize_nearest(jnp.asarray(x), out_h, out_w))
+    got = nhwc(tresize.resize_nearest(nchw(x), out_h, out_w))
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("scale", [2, 3, 4])
+def test_downsample_nearest_matches_jax(scale):
+    x = rand(2, 12, 13, 3, seed=8)
+    want = np.asarray(jresize.downsample_nearest(jnp.asarray(x), scale))
+    np.testing.assert_array_equal(nhwc(tresize.downsample_nearest(nchw(x), scale)),
+                                  want)
+
+
+@pytest.mark.parametrize("scale", [0.25, 0.5])
+def test_aggregate_mean_matches_jax(scale):
+    data = rand(3, 16, 16, seed=9) * 20  # about half the pixels invalid (< 0)
+    want = np.asarray(jaggregate_mean(jnp.asarray(data), scale))
+    got = taggregate_mean(torch.from_numpy(data), scale).numpy()
+    assert got.shape == want.shape == (3, int(16 * scale), int(16 * scale))
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("datarange", [(0.0, 1.0), None])
+def test_normalize_tile_matches_jax(datarange):
+    rng = np.random.default_rng(10)
+    tile = rng.uniform(-500, 6000, (8, 8, 6)).astype(np.float32)
+    offset, scale = tnormalize.norm_offsets(
+        np.stack([np.zeros(6), np.full(6, 5000.0)]), "minmax")
+    want = jnormalize.normalize_tile(tile, offset, scale, datarange)
+    np.testing.assert_array_equal(
+        tnormalize.normalize_tile(tile, offset, scale, datarange), want)
+    off32, scale32 = offset.astype(np.float32), scale.astype(np.float32)
+    want = np.asarray(jnormalize.normalize_tile(jnp.asarray(tile), off32, scale32,
+                                                datarange))
+    got = tnormalize.normalize_tile(torch.from_numpy(tile), torch.from_numpy(off32),
+                                    torch.from_numpy(scale32), datarange)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("slope", [0.2, 0.01])
+def test_leaky_relu_matches_jax(slope):
+    x = rand(2, 5, 4, 3, seed=11)
+    want = np.asarray(jlayers.leaky_relu(jnp.asarray(x), slope))
+    np.testing.assert_array_equal(tlayers.leaky_relu(torch.from_numpy(x), slope).numpy(),
+                                  want)
+
+
+def test_param_count_matches_jax():
+    x = rand(1, 8, 8, 8, seed=12)
+    jm = jlayers.BasicBlock(4, stride=2)
+    v = jax.device_get(jm.init(jax.random.PRNGKey(0), jnp.asarray(x)))
+    want = jlayers.param_count(v["params"])
+    tm = tlayers.BasicBlock(8, 4, 2)
+    params = dict(tm.named_parameters())
+    assert (tlayers.param_count(tm) == tlayers.param_count(params)
+            == tlayers.param_count(params.values()) == want > 0)

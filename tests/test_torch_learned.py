@@ -17,7 +17,15 @@ seeded random weights, random LayerNorm affines and biases; its
 * without ``model`` each metric builds its tower on the meta device out of
   the ``state_dict``'s own tensors, and a ``model`` that already holds them
   is not loaded again;
-* without weights each metric raises as the JAX package's does.
+* without weights each metric raises as the JAX package's does;
+* the port's ``convert_clip_visual`` / ``convert_siglip_visual`` /
+  ``convert_lpips_alex`` on the JAX converters' own test state dicts
+  (``tests/test_learned_metrics.py``), in each key form the JAX function
+  accepts (bare, ``visual.``, ``visual.trunk.`` / ``trunk.``, lpips'
+  ``net.slice*`` or torchvision's ``features.*``, a CLIPA file without
+  ``ln_pre``, a (N, C) ``pos_embed``), with keys of other towers beside:
+  the tower loads the result with ``strict=True`` and gives the JAX
+  tower's output within 1e-4 of its largest magnitude.
 """
 import numpy as np
 import pytest
@@ -231,7 +239,7 @@ def test_nearest_resize_is_the_jax_rule(src, dst):
     x = np.arange(src, dtype=np.float32)[None, :, None, None] * np.ones(
         (1, src, src, 1), np.float32)
     want = np.asarray(jlearned._nearest_torch(jnp.asarray(x), dst))
-    got = learned.resize_nearest(_nchw(x), dst).permute(0, 2, 3, 1).numpy()
+    got = learned._nearest_torch(_nchw(x), dst).permute(0, 2, 3, 1).numpy()
     np.testing.assert_array_equal(got, want)
     if (src, dst) == (224, 384):
         assert got[0, 108, 0, 0] == 62
@@ -264,3 +272,94 @@ def test_metrics_refuse_without_weights():
                lambda: jlearned.calculate_clipscore(x, x, clip_model="resnet50")):
         with pytest.raises(ValueError, match="is not supported for CLIPScore"):
             fn()
+
+
+def _published(kind, form):
+    """A JAX converter test's state dict in one of the key forms the JAX
+    function accepts, with keys of other towers beside it."""
+    import test_learned_metrics as jt
+
+    if kind == "lpips":
+        sd = jt._torch_lpips_sd(np.random.default_rng(2))
+        if form == "torchvision":
+            sd = {k.replace(f"net.slice{i + 1}.", "features."): v
+                  for i in range(5) for k, v in sd.items()
+                  if k.startswith(f"net.slice{i + 1}.")}
+        return sd
+    if kind == "siglip":
+        sd = jt._torch_siglip_sd(np.random.RandomState(7))
+        if form == "nc_pos_embed":
+            sd["pos_embed"] = sd["pos_embed"][0]
+        pre = {"visual.trunk": "visual.trunk.", "trunk": "trunk."}.get(form, "")
+        return {**{pre + k: v for k, v in sd.items()},
+                "visual.head.weight": np.zeros((4, jt.WIDTH), np.float32)}
+    sd = jt._torch_clip_visual_sd(np.random.default_rng(0))
+    if kind == "clipa":
+        rng = np.random.RandomState(11)
+        del sd["ln_pre.weight"], sd["ln_pre.bias"]
+        for i in range(jt.LAYERS):
+            t = f"transformer.resblocks.{i}."
+            sd[t + "mlp.c_fc.weight"] = rng.normal(0, 0.05, (jt.MLP, jt.WIDTH)).astype(np.float32)
+            sd[t + "mlp.c_fc.bias"] = rng.normal(0, 0.02, (jt.MLP,)).astype(np.float32)
+            sd[t + "mlp.c_proj.weight"] = rng.normal(0, 0.05, (jt.WIDTH, jt.MLP)).astype(np.float32)
+    pre = "visual." if form == "visual" else ""
+    return {**{pre + k: v for k, v in sd.items()},
+            "token_embedding.weight": np.zeros((8, 4), np.float32),
+            "logit_scale": np.zeros((), np.float32)}
+
+
+CONVERT_CASES = [("clip", "bare"), ("clip", "visual"), ("clipa", "visual"),
+                 ("siglip", "bare"), ("siglip", "visual.trunk"),
+                 ("siglip", "trunk"), ("siglip", "nc_pos_embed"),
+                 ("lpips", "lpips")]
+
+
+@pytest.mark.parametrize("kind,form", CONVERT_CASES)
+def test_published_state_dicts_load_like_jax(kind, form):
+    import test_learned_metrics as jt
+
+    sd = _published(kind, form)
+    tower = dict(image_size=jt.IMG, patch_size=jt.PATCH, width=jt.WIDTH,
+                 layers=jt.LAYERS, heads=jt.HEADS)
+    if kind == "lpips":
+        model, jm = lpips.LPIPS(), jlpips.LPIPS()
+        got_sd, variables = lpips.convert_lpips_alex(sd), jlpips.convert_lpips_alex(sd)
+    elif kind == "siglip":
+        model = clip.MAPVisionTransformer(**tower, mlp_dim=jt.MLP)
+        jm = jclip.MAPVisionTransformer(**tower, mlp_dim=jt.MLP)
+        got_sd = clip.convert_siglip_visual(sd, jt.LAYERS)
+        variables = jclip.convert_siglip_visual(sd, jt.LAYERS)
+    else:
+        kw = dict(output_dim=32)
+        if kind == "clipa":
+            kw = dict(output_dim=32, mlp_dim=jt.MLP, use_quick_gelu=False,
+                      ln_pre=False, pool="avg", final_ln_after_pool=True)
+        model = clip.CLIPVisionTransformer(**tower, **kw)
+        jm = jclip.CLIPVisionTransformer(**tower, **kw)
+        got_sd = clip.convert_clip_visual(sd, jt.LAYERS)
+        variables = jclip.convert_clip_visual(sd, jt.LAYERS)
+    model.load_state_dict(got_sd, strict=True)
+    model.eval()
+    rng = np.random.default_rng(8)
+    side = 64 if kind == "lpips" else jt.IMG
+    xs = [rng.uniform(0, 1, (2, side, side, 3)).astype(np.float32)
+          for _ in range(2 if kind == "lpips" else 1)]
+    want = jax.jit(jm.apply)(variables, *map(jnp.asarray, xs))
+    with torch.no_grad():
+        got = model(*map(_nchw, xs))
+    _close(got.numpy(), want)
+
+
+def test_torchvision_trunk_loads_beside_the_heads():
+    """A bare torchvision AlexNet file gives the trunk and no ``lin`` heads,
+    as the JAX converter does; its trunk equals the lpips file's."""
+    trunk = lpips.convert_lpips_alex(_published("lpips", "torchvision"))
+    full = lpips.convert_lpips_alex(_published("lpips", "lpips"))
+    heads = {k for k in full if k.startswith("lin")}
+    assert sorted(trunk) == sorted(set(full) - heads) and len(heads) == 5
+    for k, v in trunk.items():
+        assert torch.equal(v, full[k]), k
+    missing, unexpected = lpips.LPIPS().load_state_dict(trunk, strict=False)
+    assert sorted(missing) == sorted(heads) and unexpected == []
+    with pytest.raises(KeyError, match="conv0"):
+        lpips.convert_lpips_alex({})

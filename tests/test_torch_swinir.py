@@ -141,3 +141,116 @@ def test_tiled_inference_matches_jax(tile):
                                    tile=tile, tile_overlap=8)
     assert got.shape == want.shape == (48, 80, 3)
     np.testing.assert_allclose(got, want, atol=TOL, rtol=TOL)
+
+
+# drop-path (stochastic depth): the JAX package draws its masks from a JAX
+# key, so train mode is held to the JAX output at rate 0 and, above it, to
+# the rule itself: each sample's branch zeroed or scaled by 1 / keep
+DROP_KW = dict(embed_dim=12, depths=(2, 3), num_heads=(2, 2), window_size=8,
+               mlp_ratio=2, upscale=1, upsampler="", num_feat=16)
+
+
+def _jax_block_rates(jm, v, x):
+    """The drop-path rate of each JAX block, read as the blocks are called."""
+    import flax.linen as fnn
+
+    rates = []
+
+    def record(f, args, kwargs, context):
+        if (isinstance(context.module, jswin.SwinTransformerBlock)
+                and context.method_name == "__call__"):
+            rates.append(context.module.drop_path)
+        return f(*args, **kwargs)
+
+    with fnn.intercept_methods(record):
+        jm.apply(v, x)
+    return rates
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.37])
+def test_drop_path_rates_equal_jax_dpr(rate):
+    jm = jswin.SwinIR(**DROP_KW, drop_path_rate=rate)
+    x = jnp.zeros((1, 16, 16, 3))
+    want = _jax_block_rates(jm, jm.init(jax.random.PRNGKey(0), x), x)
+    tm = tswin.SwinIR(**DROP_KW, drop_path_rate=rate)
+    got = [b.drop_path for m in tm.layers for b in m.residual_group.blocks]
+    assert len(want) == 5 and got == want
+
+
+@pytest.mark.parametrize("mode", ["eval", "train"])
+def test_modes_match_jax(mode):
+    """Eval mode at the default rate 0.1 against JAX ``train=False``; train
+    mode at rate 0 against JAX ``train=True``: no draw in either."""
+    rate = 0.1 if mode == "eval" else 0.0
+    jm = jswin.SwinIR(**DROP_KW, drop_path_rate=rate)
+    x = np.random.default_rng(7).uniform(0, 1, (2, 24, 24, 3)).astype(np.float32)
+    v = jax.device_get(jax.jit(jm.init)(jax.random.PRNGKey(1), jnp.asarray(x)))
+    tm = tswin.SwinIR(**DROP_KW, drop_path_rate=rate, use_kernel=False)
+    tm.load_state_dict(swinir_state_dict(v, DROP_KW["depths"], ""), strict=True)
+    tm.train(mode == "train")
+    want = np.asarray(jm.apply(v, jnp.asarray(x), train=mode == "train"))
+    with torch.no_grad():
+        got = nhwc(tm(torch.from_numpy(x).permute(0, 3, 1, 2)))
+    np.testing.assert_allclose(got, want, atol=TOL, rtol=TOL)
+
+
+def test_drop_path_zeroes_or_scales_each_sample():
+    """Each sample all zero or all ``x / keep``; the kept share within five
+    binomial standard deviations of ``keep``."""
+    n, rate = 20000, 0.25
+    keep = 1 - rate
+    x = torch.rand(n, 2, 2, 3, generator=torch.Generator().manual_seed(0)) + 0.5
+    out = tswin.drop_path(x, rate, torch.Generator().manual_seed(1))
+    kept = (out != 0).flatten(1).all(1)
+    dropped = (out == 0).flatten(1).all(1)
+    assert bool((kept | dropped).all())
+    assert torch.equal(out[kept], x[kept] / keep)
+    share = kept.double().mean().item()
+    assert abs(share - keep) <= 5 * (keep * rate / n) ** 0.5, share
+
+
+def _block_with_masks(blk, x, m1, m2, keep):
+    """A Swin block's forward with given drop-path masks of its two branches."""
+    b, h, w, c = x.shape
+    ws, shift = blk.window_size, blk.shift_size
+    y, mask = blk.norm1(x), None
+    if shift:
+        y = torch.roll(y, (-shift, -shift), dims=(1, 2))
+        mask = torch.from_numpy(tswin.shift_attn_mask(h, w, ws, shift))
+    a = tswin.window_reverse(blk.attn(tswin.window_partition(y, ws), mask), ws, h, w)
+    if shift:
+        a = torch.roll(a, (shift, shift), dims=(1, 2))
+    x = x + a / keep * m1
+    return x + blk.mlp(blk.norm2(x)) / keep * m2
+
+
+@pytest.mark.parametrize("shift", [0, 4])
+def test_block_drops_both_branches_per_sample(shift):
+    rate, n = 0.5, 16
+    keep = 1 - rate
+    blk = tswin.SwinTransformerBlock(12, 2, 8, shift_size=shift, mlp_ratio=2,
+                                     use_kernel=False, drop_path=rate)
+    x = torch.randn(n, 16, 16, 12, generator=torch.Generator().manual_seed(2))
+    replay = torch.Generator().manual_seed(3)
+    m1, m2 = (torch.empty(n, 1, 1, 1).bernoulli_(keep, generator=replay)
+              for _ in range(2))
+    assert 0 < m1.sum() < n and 0 < m2.sum() < n
+    with torch.no_grad():
+        got = blk.train()(x, torch.Generator().manual_seed(3))
+        want = _block_with_masks(blk, x, m1, m2, keep)
+        assert torch.equal(got, want)
+        assert not torch.equal(blk.eval()(x), got)
+
+
+def test_train_mode_draws_from_its_generator():
+    tm = tswin.SwinIR(**DROP_KW, drop_path_rate=0.3, use_kernel=False).train()
+    x = torch.rand(4, 3, 16, 16, generator=torch.Generator().manual_seed(4))
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="torch.Generator"):
+            tm(x)
+        a = tm(x, torch.Generator().manual_seed(5))
+        b = tm(x, torch.Generator().manual_seed(5))
+        c = tm(x, torch.Generator().manual_seed(6))
+        e = tm.eval()(x)
+    assert torch.equal(a, b)
+    assert not torch.equal(a, c) and not torch.equal(a, e)
