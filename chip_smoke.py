@@ -263,6 +263,7 @@ SWIN_BATCH = 8  # 64x64 tiles: B_ = 512 windows a call, 94 MB of q/k/v/o > L2
 HARNESS_SIDES = (64, 72, 80, 96)
 HARNESS_TILES = {"classical_sr": (16, 8), "color_dn": (48, 16)}
 ENTRY_TRAIN_TILES, ENTRY_TEST_TILES, ENTRY_WORKERS = 32, 16, 4
+ENTRY_BATCH = 16
 ENTRY_TOL = 1e-4
 CITY_BATCH = 32
 # phase 7: source pixels of the full-width city (20.48 km at 10 m: the order
@@ -579,6 +580,71 @@ def phase_swinir(wa, harness):
     return launches, diff, times, profiled_ms, train_launches
 
 
+def swinir_options(wa, harness, smi):
+    """SwinIR classical-SR x4 at full width (embed 180, 6x6 RSTBs) built
+    with the official options off, ``qkv_bias=False, patch_norm=False``:
+    the kernel path against the plain path on the same weights (the
+    phase's bound), the kernel's launches in one forward, ms per image, and
+    the card against the CPU on a small input."""
+    from srbh_tpu_torch.models.layers import init_weights
+    from srbh_tpu_torch.models.swinir import SwinIR
+
+    model = SwinIR(**harness._preset("classical_sr", 4, False), qkv_bias=False,
+                   patch_norm=False)
+    init_weights(model, torch.Generator().manual_seed(3))
+    model = model.eval().cuda()
+    keys = list(model.state_dict())
+    if any(k.endswith("qkv.bias") or k.startswith("patch_embed.norm")
+           for k in keys):
+        raise AssertionError("SwinIR options: a qkv bias or patch norm remains")
+    attns = [m for m in model.modules() if hasattr(m, "use_kernel")]
+    rng = np.random.default_rng(4)
+    x = torch.tensor(rng.uniform(0, 1, (SWIN_BATCH, 64, 64, 3)).astype(np.float32),
+                     device="cuda")
+
+    def run(use_kernel):
+        for m in attns:
+            m.use_kernel = use_kernel
+        out = harness.apply(model, x)
+        torch.cuda.synchronize()
+        return out
+
+    wa.window_attention.launches = 0
+    out_k = run(True)
+    launches = wa.window_attention.launches
+    out_p = run(False)
+    diff = (out_k - out_p).abs().max().item()
+    scale = max(1.0, out_p.abs().max().item())
+    times = {}
+    for use_kernel in (True, False, False, True):
+        for m in attns:
+            m.use_kernel = use_kernel
+        t = cuda_ms(lambda: harness.apply(model, x), iters=5, warmup=1)
+        times.setdefault(use_kernel, []).append(t / SWIN_BATCH)
+    for m in attns:
+        m.use_kernel = True
+    small = rng.uniform(0, 1, (1, 24, 24, 3)).astype(np.float32)
+    got = harness.apply(model, small).cpu()
+    want = harness.apply(copy.deepcopy(model).to("cpu"), small)
+    diff_cpu = (got - want).abs().max().item()
+    scale_cpu = max(1.0, want.abs().max().item())
+    log(f"[swinir] classical_sr x4, qkv_bias False, patch_norm False, embed "
+        f"180, 6x6 RSTBs, batch {SWIN_BATCH} x 64x64: kernel vs plain "
+        f"max_abs_diff={diff:.3e} (tol {SWIN_TOL:.0e} x {scale:.3f}); launches "
+        f"per forward={launches}; ms per image: kernel {times[True]}, plain "
+        f"{times[False]}; 24x24 card vs CPU {diff_cpu:.3e} (tol {SWIN_TOL:.0e} x "
+        f"{scale_cpu:.3f}); {smi}")
+    if out_k.shape != (SWIN_BATCH, 256, 256, 3) or not torch.isfinite(out_k).all():
+        raise AssertionError(f"SwinIR options: output {tuple(out_k.shape)}")
+    if launches != 36:
+        raise AssertionError(f"SwinIR options: {launches} kernel launches, not 36")
+    if not (diff <= SWIN_TOL * scale and diff_cpu <= SWIN_TOL * scale_cpu):
+        raise AssertionError("SwinIR options: the kernel path disagrees with the "
+                             "plain path, or the card with the CPU")
+    return {"launches": launches, "max_abs_diff": diff,
+            "ms_per_image": times, "card_vs_cpu": diff_cpu}
+
+
 def phase_flagship(entry, make_city_step, smi):
     log(f"[flagship] memory allocated at the start: "
         f"{torch.cuda.memory_allocated() / 2**20:.1f} MiB")
@@ -650,10 +716,11 @@ def train_batch(rng, n, tile=64):
     }
 
 
-def write_tiles(root, n):
+def write_tiles(root, n, upscale=4):
     """``n`` synthetic tiles (tests/test_e2e_train.py's recipe at 64x64): s2
-    uint16 (64, 64, 6), s1 float32 (64, 64, 2), bh uint8 (256, 256), the
-    train and validation lists, min-max tables and a height histogram."""
+    uint16 (64, 64, 6), s1 float32 (64, 64, 2), bh uint8 at x``upscale``
+    ((256, 256) at 2.5 m by default), the train and validation lists, min-max
+    tables and a height histogram."""
     from srbh_tpu_torch.data.tiff import write_tiff
 
     rng = np.random.default_rng(3)
@@ -666,9 +733,10 @@ def write_tiles(root, n):
                    rng.integers(0, 5000, (64, 64, 6)).astype(np.uint16), gt)
         write_tiff(os.path.join(root, "s1c", name),
                    rng.uniform(-25, 5, (64, 64, 2)).astype(np.float32), gt)
+        hr = 64 * upscale
         write_tiff(os.path.join(root, "bhc", name),
-                   rng.integers(0, 100, (256, 256)).astype(np.uint8),
-                   (gt[0], 2.5, 0.0, gt[3], 0.0, -2.5))
+                   rng.integers(0, 100, (hr, hr)).astype(np.uint8),
+                   (gt[0], 10.0 / upscale, 0.0, gt[3], 0.0, -10.0 / upscale))
     for split in ("train", "val"):
         with open(os.path.join(root, f"dl_{split}.csv"), "w") as f:
             f.writelines(f"{name},s1c,s2c,bhc\n" for name in names)
@@ -864,6 +932,11 @@ def check_trained(state, init_model, init_sr, scalars):
 
 
 def check_checkpoint(cfg, state):
+    """The last checkpoint of ``trainer.main`` restored into a fresh state:
+    model, log-vars and step equal to the live state's; Adam's state bit
+    for bit with ``cfg.save_opt_state``, else absent from the file and empty
+    in the restored optimizer until its first step (the reference's and the
+    JAX package's resume)."""
     from srbh_tpu_torch.train.checkpoint import load_checkpoint, restore_into_state
     from srbh_tpu_torch.train.state import TrainState
     from srbh_tpu_torch.train.trainer import build_models
@@ -876,14 +949,19 @@ def check_checkpoint(cfg, state):
     diff = [k for k, v in fresh.model.state_dict().items()
             if not torch.equal(v, live[k])]
     opt_a, opt_b = fresh.optimizer.state_dict(), state.optimizer.state_dict()
-    diff += [f"optimizer {i}.{k}" for i, st in opt_b["state"].items()
-             for k, v in st.items() if not torch.equal(
-                 torch.as_tensor(opt_a["state"][i][k]).cpu(),
-                 torch.as_tensor(v).cpu())]
+    if cfg.save_opt_state:
+        diff += [f"optimizer {i}.{k}" for i, st in opt_b["state"].items()
+                 for k, v in st.items() if not torch.equal(
+                     torch.as_tensor(opt_a["state"][i][k]).cpu(),
+                     torch.as_tensor(v).cpu())]
+    elif "optimizer" in payload or opt_a["state"]:
+        diff.append("optimizer (saved or restored by default)")
     if not torch.equal(fresh.log_vars, state.log_vars) or fresh.step != state.step:
         diff.append("log_vars/step")
-    log(f"[train] checkpoint (epoch {payload['epoch']}, step "
-        f"{payload['step']}) reloads: {len(diff)} tensors differ")
+    log(f"[train] checkpoint (epoch {payload['epoch']}, step {payload['step']}, "
+        f"save_opt_state {cfg.save_opt_state}: optimizer entry "
+        f"{'optimizer' in payload}, restored Adam state of "
+        f"{len(opt_a['state'])} tensors) reloads: {len(diff)} tensors differ")
     if diff:
         raise AssertionError(f"checkpoint does not reload identically: {diff[:5]}")
 
@@ -960,9 +1038,10 @@ def time_loader(cfg, smi):
 ASYNC_EPOCHS, SAVE_REPEATS = 2, 3
 
 
-def _host_state(state):
-    """CPU clones of the model's, the optimizer's and the log-vars' tensors."""
-    opt = state.optimizer.state_dict()["state"]
+def _host_state(state, save_opt_state=True):
+    """CPU clones of the model's, the log-vars' and (with
+    ``save_opt_state``) the optimizer's tensors."""
+    opt = state.optimizer.state_dict()["state"] if save_opt_state else {}
     return {"model": {k: v.detach().cpu().clone()
                       for k, v in state.model.state_dict().items()},
             "log_vars": state.log_vars.detach().cpu().clone(),
@@ -972,9 +1051,12 @@ def _host_state(state):
 
 
 def _differing(payload, clone):
-    """Names of the tensors in which a checkpoint payload and a clone differ."""
+    """Names of the tensors in which a checkpoint payload and a clone differ
+    (a clone without optimizer tensors wants a payload without them)."""
     bad = [k for k, v in clone["model"].items()
            if not torch.equal(payload["model"][k], v)]
+    if not clone["optimizer"] and "optimizer" in payload:
+        bad.append("optimizer (written without save_opt_state)")
     bad += [f"optimizer {i}.{k}" for i, st in clone["optimizer"].items()
             for k, v in st.items()
             if not torch.equal(payload["optimizer"]["state"][i][k], v)]
@@ -985,29 +1067,35 @@ def _differing(payload, clone):
     return bad
 
 
-def check_async_checkpoints(wa, train_main, cfg, root):
+def check_async_checkpoints(wa, train_main, cfg, root, save_opt_state):
     """``trainer.main`` at full width for ``ASYNC_EPOCHS`` epochs with
-    ``--async_checkpoint``, each ``save_checkpoint`` call made with
+    ``--async_checkpoint`` (and ``save_opt_state`` as given: with it, Adam's
+    tensors are compared too), each ``save_checkpoint`` call made with
     ``snapshot_every=1`` (every epoch leaves ``checkpoint{epoch}``) and
     recorded by CPU clones of the state taken as the call returns. Training
     goes on while the thread writes; after ``main`` (which joins the last
     write) each ``checkpoint{epoch}``, and ``checkpoint`` as the last, must
-    equal its clone bit for bit. Then one epoch resumed from the file."""
+    equal its clone bit for bit. Then, with ``save_opt_state``, one epoch
+    resumed from the file (the default resume is phase 6's first run's)."""
     from srbh_tpu_torch.train import trainer
 
-    cfg_a = dataclasses.replace(cfg, maxepoch=ASYNC_EPOCHS, async_checkpoint=True,
-                                logdir=os.path.join(root, "logs_async"))
+    cfg_a = dataclasses.replace(
+        cfg, maxepoch=ASYNC_EPOCHS, async_checkpoint=True,
+        save_opt_state=save_opt_state,
+        logdir=os.path.join(root, f"logs_async_opt_{save_opt_state}"))
     clones, save = {}, trainer.save_checkpoint
 
     def recording(logdir, state, epoch, best_rmse, snapshot_every=5,
-                  is_best=False, async_save=False):
+                  is_best=False, save_opt_state=False, async_save=False):
         t0 = time.perf_counter()
         path = save(logdir, state, epoch, best_rmse, snapshot_every=1,
-                    is_best=is_best, async_save=async_save)
+                    is_best=is_best, save_opt_state=save_opt_state,
+                    async_save=async_save)
         blocked = 1e3 * (time.perf_counter() - t0)
         written = os.path.exists(os.path.join(logdir, f"checkpoint{epoch}"))
-        clones[epoch] = dict(_host_state(state), blocked_ms=blocked,
-                             written_at_return=written, async_save=async_save)
+        clones[epoch] = dict(_host_state(state, save_opt_state),
+                             blocked_ms=blocked, written_at_return=written,
+                             async_save=async_save)
         return path
 
     wa.window_attention.launches = 0
@@ -1031,7 +1119,8 @@ def check_async_checkpoints(wa, train_main, cfg, root):
                                  f"at its call: {bad[:5]}")
     went_on = sum(not torch.equal(v, clones[ASYNC_EPOCHS]["model"][k])
                   for k, v in clones[1]["model"].items())
-    log(f"[train] trainer.main --async_checkpoint, {ASYNC_EPOCHS} epochs of "
+    log(f"[train] trainer.main --async_checkpoint --save_opt_state "
+        f"{save_opt_state}, {ASYNC_EPOCHS} epochs of "
         f"{TRAIN_STEPS} steps: saves {[clones[e]['async_save'] for e in sorted(clones)]} "
         f"asynchronous; loop blocked {[round(clones[e]['blocked_ms'], 1) for e in sorted(clones)]}"
         f" ms; checkpoint{{epoch}} written when the call returned: "
@@ -1042,21 +1131,25 @@ def check_async_checkpoints(wa, train_main, cfg, root):
             clones[e]["async_save"] for e in clones) or not went_on:
         raise AssertionError("async trainer run: wrong step count, a synchronous "
                              "save, or no training after the first save")
+    if not save_opt_state:
+        return state, launches
     cfg_a.maxepoch = ASYNC_EPOCHS + 1
     resumed = train_main(cfg_a, max_steps_per_epoch=TRAIN_STEPS, device="cuda")
     log(f"[train] resumed from the asynchronous checkpoint of epoch "
-        f"{ASYNC_EPOCHS}: step {resumed.step}")
+        f"{ASYNC_EPOCHS} (save_opt_state {save_opt_state}): step {resumed.step}")
     if resumed.step != (ASYNC_EPOCHS + 1) * TRAIN_STEPS:
         raise AssertionError(f"async resume: step {resumed.step}")
     return resumed, launches
 
 
 def time_checkpoint_saves(state, cfg, root, smi):
-    """How long the training loop waits for a save of the full-width state:
-    ``SAVE_REPEATS`` synchronous saves and as many asynchronous ones (each
-    joined before the next), medians; and the train step's time while an
-    asynchronous write is in flight against without one (the writing
-    thread's pickling takes the GIL from the loop's Python)."""
+    """How long the training loop waits for a save of the full-width state,
+    by default (model and log-vars) and with ``save_opt_state`` (Adam's two
+    moments too): ``SAVE_REPEATS`` synchronous saves and as many
+    asynchronous ones (each joined before the next), medians; and the train
+    step's time while an asynchronous write is in flight against without
+    one (the writing thread's pickling takes the GIL from the loop's
+    Python)."""
     from srbh_tpu_torch.train import checkpoint as ckpt
     from srbh_tpu_torch.train.steps import make_train_step
 
@@ -1075,38 +1168,47 @@ def time_checkpoint_saves(state, cfg, root, smi):
     for _ in range(2):
         timed_step()
     alone = [timed_step() for _ in range(5)]
-    blocked = {False: [], True: []}
-    during, commit = [], []
-    for async_save in (False,) * SAVE_REPEATS + (True,) * SAVE_REPEATS:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        path = ckpt.save_checkpoint(logdir, state, 1, 1.0, async_save=async_save)
-        blocked[async_save].append(1e3 * (time.perf_counter() - t0))
-        while async_save and not ckpt._pending.done():
-            during.append(timed_step())
-        if async_save:
-            ckpt.wait_for_saves()
-            commit.append(1e3 * (time.perf_counter() - t0))
-    mib = os.path.getsize(path) / 2**20
-    out = {"payload_mib": mib,
-           "sync_blocked_ms": float(np.median(blocked[False])),
-           "async_blocked_ms": float(np.median(blocked[True])),
-           "async_commit_ms": float(np.median(commit)),
-           "step_ms_alone": float(np.median(alone)),
-           "step_ms_during_commit": float(np.median(during)) if during else None,
-           "steps_during_commits": len(during)}
-    log(f"[train] checkpoint save of the full-width state ({mib:.1f} MiB): loop "
-        f"blocked {out['sync_blocked_ms']:.1f} ms by a synchronous save, "
-        f"{out['async_blocked_ms']:.1f} ms by an asynchronous one (medians of "
-        f"{SAVE_REPEATS}: {[round(t, 1) for t in blocked[False]]} / "
-        f"{[round(t, 1) for t in blocked[True]]}); the asynchronous write done "
-        f"{out['async_commit_ms']:.1f} ms after the call; train step "
-        f"{out['step_ms_alone']:.1f} ms alone, "
-        + (f"{out['step_ms_during_commit']:.1f} ms" if during else "not measured")
-        + f" while a write is in flight ({len(during)} steps); {smi}")
-    if not out["async_blocked_ms"] < out["sync_blocked_ms"]:
-        raise AssertionError("an asynchronous save blocked the loop as long as "
-                             "a synchronous one")
+    out = {}
+    for save_opt_state in (False, True):
+        blocked = {False: [], True: []}
+        during, commit = [], []
+        for async_save in (False,) * SAVE_REPEATS + (True,) * SAVE_REPEATS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = ckpt.save_checkpoint(logdir, state, 1, 1.0,
+                                        save_opt_state=save_opt_state,
+                                        async_save=async_save)
+            blocked[async_save].append(1e3 * (time.perf_counter() - t0))
+            while async_save and not ckpt._pending.done():
+                during.append(timed_step())
+            if async_save:
+                ckpt.wait_for_saves()
+                commit.append(1e3 * (time.perf_counter() - t0))
+        mib = os.path.getsize(path) / 2**20
+        r = {"payload_mib": mib,
+             "sync_blocked_ms": float(np.median(blocked[False])),
+             "async_blocked_ms": float(np.median(blocked[True])),
+             "async_commit_ms": float(np.median(commit)),
+             "step_ms_alone": float(np.median(alone)),
+             "step_ms_during_commit": float(np.median(during)) if during else None,
+             "steps_during_commits": len(during)}
+        out["with_opt_state" if save_opt_state else "default"] = r
+        log(f"[train] checkpoint save of the full-width state, save_opt_state "
+            f"{save_opt_state} ({mib:.1f} MiB): loop "
+            f"blocked {r['sync_blocked_ms']:.1f} ms by a synchronous save, "
+            f"{r['async_blocked_ms']:.1f} ms by an asynchronous one (medians of "
+            f"{SAVE_REPEATS}: {[round(t, 1) for t in blocked[False]]} / "
+            f"{[round(t, 1) for t in blocked[True]]}); the asynchronous write done "
+            f"{r['async_commit_ms']:.1f} ms after the call; train step "
+            f"{r['step_ms_alone']:.1f} ms alone, "
+            + (f"{r['step_ms_during_commit']:.1f} ms" if during else "not measured")
+            + f" while a write is in flight ({len(during)} steps); {smi}")
+        if not r["async_blocked_ms"] < r["sync_blocked_ms"]:
+            raise AssertionError("an asynchronous save blocked the loop as long "
+                                 "as a synchronous one")
+    if not out["default"]["payload_mib"] < out["with_opt_state"]["payload_mib"]:
+        raise AssertionError("the default checkpoint is not smaller than the "
+                             "one with the optimizer state")
     return out
 
 
@@ -1150,8 +1252,30 @@ def phase_train(wa, smi):
         cfg.maxepoch = 2
         resumed = train_main(cfg, writer=record, max_steps_per_epoch=TRAIN_STEPS,
                              device="cuda")
-        if resumed.step != 2 * TRAIN_STEPS or len(record.scalars["lr"]) != 2:
-            raise AssertionError(f"resume: step {resumed.step}")
+        counts = {float(st["step"]) for st in resumed.optimizer.state.values()}
+        log(f"[train] resumed by default (a fresh Adam): step {resumed.step}, "
+            f"Adam's own step counts {sorted(counts)}")
+        if resumed.step != 2 * TRAIN_STEPS or len(record.scalars["lr"]) != 2 \
+                or counts != {float(TRAIN_STEPS)}:
+            raise AssertionError(f"resume: step {resumed.step}, Adam {counts}")
+        check_trained(resumed, init_model, init_sr, record.scalars)
+        del state, resumed
+        torch.cuda.empty_cache()
+        # --save_opt_state true: Adam's state in the file, an exact resume
+        cfg_exact = dataclasses.replace(cfg, save_opt_state=True, maxepoch=1,
+                                        logdir=os.path.join(root, "logs_exact"))
+        record = ScalarLog()
+        state = train_main(cfg_exact, writer=record,
+                           max_steps_per_epoch=TRAIN_STEPS, device="cuda")
+        check_checkpoint(cfg_exact, state)
+        cfg_exact.maxepoch = 2
+        resumed = train_main(cfg_exact, writer=record,
+                             max_steps_per_epoch=TRAIN_STEPS, device="cuda")
+        counts = {float(st["step"]) for st in resumed.optimizer.state.values()}
+        log(f"[train] resumed with --save_opt_state: step {resumed.step}, Adam's "
+            f"own step counts {sorted(counts)}")
+        if resumed.step != 2 * TRAIN_STEPS or counts != {2.0 * TRAIN_STEPS}:
+            raise AssertionError(f"exact resume: step {resumed.step}, Adam {counts}")
         check_trained(resumed, init_model, init_sr, record.scalars)
         del state, resumed
         torch.cuda.empty_cache()
@@ -1174,14 +1298,20 @@ def phase_train(wa, smi):
         check_trained(normed, init_model, init_sr, record.scalars)
         del normed
         torch.cuda.empty_cache()
-        resumed, async_launches = check_async_checkpoints(wa, train_main, cfg, root)
+        state, async_default_launches = check_async_checkpoints(
+            wa, train_main, cfg, root, save_opt_state=False)
+        del state
+        torch.cuda.empty_cache()
+        resumed, async_launches = check_async_checkpoints(
+            wa, train_main, cfg, root, save_opt_state=True)
         saves = time_checkpoint_saves(resumed, cfg, root, smi)
         del resumed
         torch.cuda.empty_cache()
         loop = time_loader(cfg, smi)
     steps = time_steps(smi)
     return {"launches": launches, "device_aug_launches": aug_launches,
-            "async_launches": async_launches, "saves": saves,
+            "async_launches": async_launches,
+            "async_default_launches": async_default_launches, "saves": saves,
             "steps": steps, "loop_ms": loop}
 
 
@@ -1382,6 +1512,119 @@ def time_city_parts(ds, step, timed):
     return want[1], want[0]
 
 
+def rss_kib():
+    """This process's peak RSS (``VmHWM``, KiB), or its RSS now (``VmRSS``)
+    where ``/proc/self/status`` has no peak: unlike ``getrusage``'s
+    ``ru_maxrss``, which the kernel updates only on unmaps and exits, both
+    count the pages resident now. 0 where the file has neither (a sample
+    must not raise ``StopIteration``: torch's loader would end the epoch)."""
+    with open("/proc/self/status") as f:
+        fields = dict(line.split(":", 1) for line in f if ":" in line)
+    value = fields.get("VmHWM", fields.get("VmRSS", "0 kB"))
+    return int(value.split()[0])
+
+
+class CountingWindows(torch.utils.data.Dataset):
+    """A city dataset's windows, each sample with the id of the loader
+    process that read it, that process's chunk decodes so far and its peak
+    RSS (KiB): phase 7's look at the readers inside the workers."""
+
+    def __init__(self, ds):
+        self.ds, self.decodes = ds, 0
+        for r in (ds.s2, ds.s1):
+            r._decode_chunk = self._counted(r, r._decode_chunk)
+
+    def _counted(self, reader, decode):
+        def run(idx, shape):
+            self.decodes += idx not in reader._cache
+            return decode(idx, shape)
+        return run
+
+    def __len__(self):
+        return len(self.ds)
+
+    def __getitem__(self, i):
+        sample = self.ds[i]
+        info = torch.utils.data.get_worker_info()
+        sample.update(worker=np.int64(info.id if info else -1),
+                      decodes=np.int64(self.decodes),
+                      rss_kib=np.int64(rss_kib()))
+        return sample
+
+
+def loader_pass(ds):
+    """One epoch of the city's windows through the loader (4 processes,
+    batch ``CLI_BATCH``, to the card, ``prefetch`` 2): windows/s, and per
+    process its chunk decodes, its peak RSS over its windows and that
+    peak's rise over the RSS at its first window (GiB)."""
+    from srbh_tpu_torch.data.pipeline import DataLoader
+
+    loader = DataLoader(CountingWindows(ds), batch_size=CLI_BATCH,
+                        num_workers=4, device_put=True, device="cuda",
+                        host_keys=("pos", "worker", "decodes", "rss_kib"),
+                        prefetch=2)
+    seen = {}
+    t0 = time.perf_counter()
+    n = 0
+    for batch in loader:
+        n += batch["image"].shape[0]
+        w = int(batch["worker"][-1])
+        first = seen.get(w, {}).get("first_kib", int(batch["rss_kib"][0]))
+        peak = max(seen.get(w, {}).get("rss_kib", 0), int(batch["rss_kib"].max()))
+        seen[w] = {"first_kib": first, "decodes": int(batch["decodes"][-1]),
+                   "rss_kib": peak}
+    torch.cuda.synchronize()
+    rate = n / (time.perf_counter() - t0)
+    return {"windows_per_s": rate,
+            "decodes": [seen[w]["decodes"] for w in sorted(seen)],
+            "worker_peak_rss_gib": [seen[w]["rss_kib"] / 2**20 for w in sorted(seen)],
+            "worker_rss_rise_gib": [(seen[w]["rss_kib"] - seen[w]["first_kib"]) / 2**20
+                                    for w in sorted(seen)]}
+
+
+def check_city_reader(region, step, dev_paths, out, timed, smi):
+    """The memory-mapped, caching ``TiffReader`` of the main path against
+    an uncached one (``max_cache_bytes=0``, this check's alone): the device
+    stitcher's mosaics from the same step at the same batch byte-equal, and
+    the loader alone over each, with each process's chunk decodes and RSS."""
+    from srbh_tpu_torch.data.grid import GridImageDataset
+    from srbh_tpu_torch.data.tiff import TiffReader
+    from srbh_tpu_torch.predict.predictor import predict_city
+
+    def dataset(cached):
+        ds = GridImageDataset(region, "synth", os.path.join(region, "stats"),
+                              **GRID_KW)
+        if not cached:
+            ds.s2.close()
+            ds.s1.close()
+            ds.s2 = TiffReader(ds.s2path, max_cache_bytes=0)
+            ds.s1 = TiffReader(ds.s1path, max_cache_bytes=0)
+        return ds
+
+    paths = predict_city(dataset(False), step, out, "synth",
+                         batch_size=DEVICE_STITCH_BATCH, stitch="device")
+    equal = all(a.dtype == b.dtype and np.array_equal(a, b) for a, b in
+                zip(read_mosaic(paths), read_mosaic(dev_paths)))
+    ds = dataset(True)
+    chunks = len(ds.s2.chunk_offsets) + len(ds.s1.chunk_offsets)
+    passes = {"cached": loader_pass(ds), "uncached": loader_pass(dataset(False))}
+    timed["reader"] = dict(passes, mosaics_byte_equal=equal, chunks=chunks)
+    for name, r in passes.items():
+        log(f"[city] loader alone, {name} reader (4 processes, batch {CLI_BATCH}, "
+            f"prefetch 2, to the card): {r['windows_per_s']:.1f} windows/s; chunk "
+            f"decodes per process {r['decodes']} (the files hold {chunks} "
+            f"strips); process peak RSS {[round(g, 3) for g in r['worker_peak_rss_gib']]} "
+            f"GiB, risen by {[round(g, 3) for g in r['worker_rss_rise_gib']]} GiB "
+            f"over the epoch; {smi}")
+    log(f"[city] device-stitched mosaics, cached reader vs uncached, same step, "
+        f"batch {DEVICE_STITCH_BATCH}: byte-equal {equal}")
+    if not equal:
+        raise AssertionError("the cached reader's mosaics differ from the "
+                             "uncached reader's")
+    if max(passes["cached"]["decodes"]) > chunks:
+        raise AssertionError("a loader process decoded a strip twice")
+
+
 def phase_city(wa, entry, smi):
     import contextlib
     import io
@@ -1507,6 +1750,9 @@ def phase_city(wa, entry, smi):
                         read_mosaic(dev_paths), host_mosaic)
         del host_mosaic
         stage("identical tiles, step and loader alone, compare")
+        check_city_reader(region, step, dev_paths, os.path.join(root, "uncached"),
+                          timed, smi)
+        stage("cached reader against the uncached one")
         reader_mib = sum(os.path.getsize(p) for p in (ds.s2path, ds.s1path)) / 2**20
         del model, sr, step
     torch.cuda.empty_cache()
@@ -1520,8 +1766,9 @@ def phase_city(wa, entry, smi):
     log(f"[city] stages (name, seconds, host peak RSS GiB so far): {stages}")
     log(f"[city] host peak RSS {timed['host_peak_rss_gib']:.2f} GiB (before "
         f"the phase {timed['host_peak_rss_gib_before']:.2f}), largest child "
-        f"{timed['worker_peak_rss_gib']:.2f} GiB; the readers hold the city's "
-        f"S2 + S1 files whole: {reader_mib:.1f} MiB a process; phase "
+        f"{timed['worker_peak_rss_gib']:.2f} GiB (a forked process starts at "
+        f"its parent's RSS); the readers map the city's S2 + S1 files "
+        f"({reader_mib:.1f} MiB) and cache what they decode; phase "
         f"{timed['phase_s']:.1f} s")
     return {"launches": launches, **timed}
 
@@ -1717,6 +1964,49 @@ def nosuper_entry(wa, root, argv):
     return launches
 
 
+def nosuper_x2_entry(wa, root, smi):
+    """``--model_variant nosuper --upscale 2`` at full width (EfficientNet-B4,
+    batch 16) on 64x64 tiles with 128x128 height tiles at 5 m: one epoch of
+    2 steps, then ``main_test`` at batch 1; heights and classes at 128^2."""
+    from srbh_tpu_torch.train import trainer
+    from srbh_tpu_torch.train.config import TrainConfig
+    from srbh_tpu_torch.train.steps import make_predict_step
+
+    write_tiles(root, ENTRY_TRAIN_TILES, upscale=2)
+    cfg = TrainConfig(
+        datapath=root, trainlist="dl_train.csv", vallist="dl_val.csv",
+        testlist="dl_val.csv", logdir=os.path.join(root, "logs"),
+        logdirhr=os.path.join(root, "no_sr_checkpoint"), datastats=root,
+        preweight=os.path.join(root, "bh_stats.txt"), s1dir="s1c",
+        s2dir="s2c", bhdir="bhc", maxepoch=1, batch_size=ENTRY_BATCH,
+        num_workers=ENTRY_WORKERS, model_variant="nosuper", upscale=2,
+        isaggre=False)
+    wa.window_attention.launches = 0
+    t0 = time.perf_counter()
+    state = trainer.main(cfg, device="cuda")
+    res = trainer.main_test(cfg, num_sample=0, suffix="x2")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = wa.window_attention.launches
+    image = np.random.default_rng(16).uniform(0, 1, (2, 64, 64, 8)).astype(np.float32)
+    height, logits = make_predict_step(state.model, None, device="cuda")(image)
+    _, seg, he = read_acc(cfg.logdir, "acc1x2_0")
+    pixels = np.array([r[:-1] for r in seg[6:]]).sum()
+    log(f"[entry] trainer.main --model_variant nosuper --upscale 2, "
+        f"EfficientNet-B4, batch {ENTRY_BATCH}, {ENTRY_TRAIN_TILES} tiles: 1 "
+        f"epoch + main_test at batch 1: {wall:.2f} s, step {state.step}, rmse "
+        f"{res['rmse']:.4f}, oa {res['oa']:.4f}; outputs {tuple(height.shape)} "
+        f"/ {tuple(logits.shape)}; {pixels:g} test pixels counted; "
+        f"window_attention launches: {launches}; {smi}")
+    if state.step != ENTRY_TRAIN_TILES // ENTRY_BATCH or not np.isfinite(res["rmse"]) \
+            or tuple(height.shape) != (2, 128, 128) \
+            or tuple(logits.shape) != (2, 128, 128, cfg.chans_build) \
+            or pixels != ENTRY_TRAIN_TILES * 128 * 128 or he.shape != (9, 4):
+        raise AssertionError(f"nosuper x2: step {state.step}, {res}, "
+                             f"{tuple(height.shape)}, {pixels} pixels")
+    return launches
+
+
 def imagenet_state_dict(name, seed):
     """A random ImageNet state dict of EfficientNet ``name`` in
     efficientnet-pytorch's form: a 3-channel stem, drawn BatchNorm
@@ -1893,6 +2183,9 @@ def phase_entry(wa, smi):
         stages.append(("train.py sequence", time.perf_counter() - t_phase))
         timed["nosuper_launches"] = nosuper_entry(wa, root, argv)
         stages.append(("nosuper", time.perf_counter() - t_phase))
+        timed["nosuper_x2_launches"] = nosuper_x2_entry(
+            wa, os.path.join(root, "x2"), smi)
+        stages.append(("nosuper x2", time.perf_counter() - t_phase))
         encoder_weights_entry(root, argv)
         stages.append(("encoder weights", time.perf_counter() - t_phase))
         timed["harness"], timed["harness_launches"] = harness_entry(
@@ -3850,6 +4143,7 @@ def main() -> int:
     rows = phase_kernel(wa, shift_attn_mask, timing)
     (launches, swin_diff, swin_times, profiled_ms,
      swin_train_launches) = phase_swinir(wa, swinir_harness)
+    swin_options = swinir_options(wa, swinir_harness, smi)
     flagship = phase_flagship(entry, make_city_step, smi)
     train = phase_train(wa, smi)
     log(f"[train] summary {json.dumps(train)}")
@@ -3887,12 +4181,17 @@ def main() -> int:
         "launches": launches,
         "launches_by_path": {"swinir_forward": launches,
                              "swinir_train_drop_path": swin_train_launches,
+                             "swinir_no_qkv_bias_no_patch_norm":
+                                 swin_options["launches"],
                              "train": train["launches"],
                              "train_async_checkpoint": train["async_launches"],
+                             "train_async_checkpoint_default":
+                                 train["async_default_launches"],
                              "train_device_norm": train["device_aug_launches"],
                              "city": city["launches"],
                              "main_test": entry_points["sequence"]["launches"],
                              "nosuper": entry_points["nosuper_launches"],
+                             "nosuper_x2": entry_points["nosuper_x2_launches"],
                              "swinir_harness_main": entry_points["harness_launches"],
                              "long_tail": long_tail["launches"],
                              "tools": tools["launches"],

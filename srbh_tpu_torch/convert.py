@@ -260,18 +260,23 @@ def _encoder_state_dict(sd: StateDict, prefix: str, ep: Mapping, es: Mapping,
     ``{prefix}_conv_stem``, ``{prefix}_bn0``, ``{prefix}_blocks.{n}.*``."""
     _conv(sd, f"{prefix}_conv_stem", ep["stem_conv"])
     _bn(sd, f"{prefix}_bn0", ep["stem_bn"], es["stem_bn"])
-    for tn, (name, expands) in enumerate(_encoder_blocks(encoder_name)):
-        t = f"{prefix}_blocks.{tn}"
-        bp, bs = ep[name], es[name]
-        if expands:
-            _conv(sd, f"{t}._expand_conv", bp["expand_conv"])
-            _bn(sd, f"{t}._bn0", bp["expand_bn"], bs["expand_bn"])
-        _conv(sd, f"{t}._depthwise_conv", bp["dw_conv"])
-        _bn(sd, f"{t}._bn1", bp["dw_bn"], bs["dw_bn"])
-        _conv(sd, f"{t}._se_reduce", bp["se_reduce"])
-        _conv(sd, f"{t}._se_expand", bp["se_expand"])
-        _conv(sd, f"{t}._project_conv", bp["project_conv"])
-        _bn(sd, f"{t}._bn2", bp["project_bn"], bs["project_bn"])
+    for tn, (name, _) in enumerate(_encoder_blocks(encoder_name)):
+        _mbconv(sd, f"{prefix}_blocks.{tn}.", ep[name], es[name])
+
+
+def _mbconv(sd: StateDict, prefix: str, bp: Mapping, bs: Mapping) -> None:
+    """One MBConv block (``{prefix}_expand_conv`` when it expands, ...,
+    ``{prefix}_bn2``); the squeeze-excite widths are the arrays' own, so any
+    ``se_ratio`` carries across."""
+    if "expand_conv" in bp:
+        _conv(sd, f"{prefix}_expand_conv", bp["expand_conv"])
+        _bn(sd, f"{prefix}_bn0", bp["expand_bn"], bs["expand_bn"])
+    _conv(sd, f"{prefix}_depthwise_conv", bp["dw_conv"])
+    _bn(sd, f"{prefix}_bn1", bp["dw_bn"], bs["dw_bn"])
+    _conv(sd, f"{prefix}_se_reduce", bp["se_reduce"])
+    _conv(sd, f"{prefix}_se_expand", bp["se_expand"])
+    _conv(sd, f"{prefix}_project_conv", bp["project_conv"])
+    _bn(sd, f"{prefix}_bn2", bp["project_bn"], bs["project_bn"])
 
 
 def _trunk_state_dict(p: Mapping, s: Mapping, encoder_name: str,

@@ -95,8 +95,10 @@ def write_fishgrid(tif_path: str, window_size: int = 64, offset: int = 56,
     r = TiffReader(tif_path)
     cells = fishgrid_cells(r.width, r.height, r.geotransform,
                            window_size, offset)
+    geo_keys = r.info().geo_keys or b""
+    r.close()
     if prj_wkt is None:
-        code = crs.epsg_from_geokeys(r.info().geo_keys or b"")
+        code = crs.epsg_from_geokeys(geo_keys)
         if code is not None and crs.supported_epsg(code):
             prj_wkt = crs.wkt_for_epsg(code)
     out = tif_path[:-4] + "_grid.shp"
@@ -149,6 +151,7 @@ def write_fishgrid_tif(tif_path: str, window_size: int = 256,
     xmin, ymax = gt[0], gt[3]
     xmax = xmin + gt[1] * r.width
     ymin = ymax + gt[5] * r.height
+    r.close()
     grid_size = float(int(window_size * gt[1]))
     return write_fishgrid_bounds(tif_path[:-4] + "_grid.shp",
                                  xmin, xmax, ymin, ymax,
@@ -180,6 +183,7 @@ def fishgrid_stats(tif_file: str, shp_file: str,
         sums.append(s)
         counts.append(c)
         valids.append(1 if (s >= condition[1] and c >= condition[2]) else 0)
+    r.close()
     # in-place DBF update: preserves every pre-existing attribute column
     # (vrt_sum/absdiff/isv2/... from compare_grid_products) like the
     # reference's OGR field updates (demo_preprocess_height_v2.py:1148-1153)

@@ -16,13 +16,17 @@ rows ``r, r + n, ...`` of the single loader's ``k``-th batch of ``n x b``.
 processes load the samples. With ``device_put`` the batches are collated
 into pinned host tensors when ``device`` (``None`` is the card) is a card,
 and copied to it with ``non_blocking=True``, but for ``path`` and the keys
-named in ``host_keys``, which stay on the host. A worker's exception is
-raised again in the consumer, and an epoch that ends short of ``len(loader)``
-batches raises: torch's loader ends an epoch without a word where a
-sample's ``__getitem__`` raises ``StopIteration``.
+named in ``host_keys``, which stay on the host. Up to ``prefetch`` batches
+(default 2; the JAX loader's bound, which refuses values below 1) are issued
+to the card ahead of the one the consumer holds, so a batch's copy overlaps
+the step on the batch before it; the batches and their order stay the same.
+A worker's exception is raised again in the consumer, and an epoch that
+ends short of ``len(loader)`` batches raises: torch's loader ends an epoch
+without a word where a sample's ``__getitem__`` raises ``StopIteration``.
 """
 from __future__ import annotations
 
+import collections
 from typing import Dict, Iterator, Sequence
 
 import numpy as np
@@ -60,7 +64,10 @@ class DataLoader:
                  num_workers: int = 4, seed: int = 1337,
                  device_put: bool = False, device=None,
                  host_keys: Sequence[str] = (), drop_last: bool = False,
-                 shard_index: int = 0, num_shards: int = 1):
+                 shard_index: int = 0, num_shards: int = 1, prefetch: int = 2):
+        if prefetch < 1:
+            raise ValueError(f"prefetch must be >= 1, got {prefetch}")
+        self.prefetch = prefetch
         self.dataset = dataset
         self.host_keys = ("path", *host_keys)
         self.device = resolve_device(device) if device_put else None
@@ -81,13 +88,19 @@ class DataLoader:
             self.dataset.set_epoch(self.epoch)
         self.epoch += 1
         n = 0
+        ahead = collections.deque()  # batches issued, not yet handed out
         for batch in self._loader:
             if self.device is not None:
                 batch = {k: v if k in self.host_keys else
                          v.to(self.device, non_blocking=True)
                          for k, v in batch.items()}
+            ahead.append(batch)
+            if len(ahead) > self.prefetch:
+                n += 1
+                yield ahead.popleft()
+        while ahead:
             n += 1
-            yield batch
+            yield ahead.popleft()
         if n != len(self):
             raise RuntimeError(f"epoch {self.epoch - 1} ended after {n} of "
                                f"{len(self)} batches")

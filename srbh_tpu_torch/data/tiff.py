@@ -18,11 +18,21 @@ through its own; the Python codecs here stay as their plain versions:
   carried from a source file (``like``) or given (``geo_keys``): the same
   bytes as the JAX package's ``write_tiff`` for the same arguments.
 
-The file is read into memory whole (a city raster is tens of MB; the
-predictor's loader processes share that copy until they write to it).
+:class:`TiffReader` maps the file read-only (``mmap``; a zero-length file,
+which cannot be mapped, is read as bytes and then refused as not a TIFF),
+so the pages a window touches are all it keeps resident, and worker
+processes forked from the reader's process share the map. Decoded strips
+and tiles are cached up to ``max_cache_bytes`` (insert-only: once the bound
+is reached, later chunks are decoded on every read), as
+``srbh_tpu/data/tiff.py`` does: the city predictor's 64-px windows at a
+56-px stride touch each strip several times, and the cache decodes it once
+per process. :meth:`TiffReader.close` releases the map and the cache; it
+may be called twice.
 """
 from __future__ import annotations
 
+import mmap
+import os
 import re
 import struct
 import zlib
@@ -168,12 +178,19 @@ class TiffInfo:
 
 
 class TiffReader:
-    """Single-IFD TIFF reader with windowed access."""
+    """Single-IFD TIFF reader with windowed access over a read-only map of
+    the file, caching decoded chunks up to ``max_cache_bytes``."""
 
-    def __init__(self, path: str):
+    def __init__(self, path: str, max_cache_bytes: int = 512 << 20):
         self.path = path
+        self._cache: Dict[int, np.ndarray] = {}
+        self._cache_bytes = 0
+        self._max_cache_bytes = max_cache_bytes
         with open(path, "rb") as f:
-            self._buf = f.read()
+            if os.fstat(f.fileno()).st_size:
+                self._buf = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
+            else:
+                self._buf = f.read()
         b = self._buf
         if b[:2] not in (b"II", b"MM") or len(b) < 8:
             raise ValueError(f"{path}: not a TIFF")
@@ -183,6 +200,14 @@ class TiffReader:
             raise ValueError(f"{path}: bad TIFF magic {magic}")
         self.tags = self._read_ifd(off)
         self._parse()
+
+    def close(self) -> None:
+        """Release the file's map and the decoded chunks (idempotent)."""
+        buf, self._buf = self._buf, b""
+        if isinstance(buf, mmap.mmap):
+            buf.close()
+        self._cache.clear()
+        self._cache_bytes = 0
 
     def _read_ifd(self, off: int) -> Dict[int, tuple]:
         e, b = self._e, self._buf
@@ -295,6 +320,9 @@ class TiffReader:
             geo_ascii=self._geo(T_GEO_ASCII, 1))
 
     def _decode_chunk(self, idx: int, shape: Tuple[int, ...]) -> np.ndarray:
+        cached = self._cache.get(idx)
+        if cached is not None:
+            return cached
         off, cnt = self.chunk_offsets[idx], self.chunk_counts[idx]
         n = int(np.prod(shape))
         expected = n * self.dtype.itemsize
@@ -304,6 +332,9 @@ class TiffReader:
         arr = np.frombuffer(data, self.dtype, count=n).reshape(shape)
         if self.predictor == 2:
             arr = np.cumsum(arr, axis=1, dtype=self.dtype)
+        if self._cache_bytes + arr.nbytes <= self._max_cache_bytes:
+            self._cache[idx] = arr
+            self._cache_bytes += arr.nbytes
         return arr
 
     def read(self, window: Optional[Tuple[int, int, int, int]] = None

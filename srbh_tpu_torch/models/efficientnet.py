@@ -102,10 +102,12 @@ def _bn(ch):
 
 
 class MBConv(nn.Module):
-    """Mobile inverted bottleneck with squeeze-excite."""
+    """Mobile inverted bottleneck with squeeze-excite; the squeeze width is
+    ``se_ratio`` of the block's input width (at least 1)."""
 
     def __init__(self, in_ch: int, out_ch: int, expand_ratio: int, kernel: int,
-                 stride: int, drop_rate: float = 0.0):
+                 stride: int, drop_rate: float = 0.0,
+                 se_ratio: float = SE_RATIO):
         super().__init__()
         mid = in_ch * expand_ratio
         self.has_expand = expand_ratio != 1
@@ -114,7 +116,7 @@ class MBConv(nn.Module):
             self._bn0 = _bn(mid)
         self._depthwise_conv = Conv2dSame(mid, mid, kernel, stride, groups=mid)
         self._bn1 = _bn(mid)
-        se_ch = max(1, int(in_ch * SE_RATIO))  # from the block INPUT width
+        se_ch = max(1, int(in_ch * se_ratio))  # from the block INPUT width
         self._se_reduce = nn.Conv2d(mid, se_ch, 1)
         self._se_expand = nn.Conv2d(se_ch, mid, 1)
         self._project_conv = Conv2dSame(mid, out_ch, 1)

@@ -19,7 +19,12 @@ Counterparts of ``srbh_tpu/models/height_model.py``:
   features.
 
 Outputs are NCHW: height (N, 1, 256, 256), build logits (N, C, 256, 256),
-aggregated height (N, 1, 64, 64).
+aggregated height (N, 1, 64, 64), at the default ``upscale`` 4.
+:class:`SRRegressClsNosuper` runs at any power-of-two ``upscale`` (or 3), as
+the JAX class does. The classes that fuse the frozen RRDBNet features, whose
+resolution is always x4 of the tile, refuse any other ``upscale`` when they
+are built: the JAX classes take the field and then fail at their first call
+(a concatenate of x4 features with x``upscale`` heads).
 
 :class:`SRRegressClsFeature` takes the JAX package's two layout options
 (``srbh_tpu/models/height_model.py:43-73``), both off by default and both
@@ -53,7 +58,7 @@ from srbh_tpu_torch.models.unet_decoder import UnetDecoder
 
 IN_CHANNELS = 8  # 6 Sentinel-2 bands + 2 Sentinel-1 bands
 DECODER_CHANNELS = (256, 128, 64, 32, 16)
-UPSCALE = 4
+UPSCALE = 4  # the frozen RRDBNet features' scale
 
 
 def _trunk(model: nn.Module, encoder_name: str, decoder_channels,
@@ -69,6 +74,16 @@ def _trunk(model: nn.Module, encoder_name: str, decoder_channels,
     return decoder_channels[-1]
 
 
+def _fused_upscale(upscale: int, source: str = "frozen RRDBNet") -> int:
+    """``upscale`` of a class that fuses x4 SR features: only theirs."""
+    if upscale != UPSCALE:
+        raise ValueError(f"upscale {upscale}: the {source} features are "
+                         f"x{UPSCALE} of the tile, so a model that fuses them "
+                         f"runs at x{UPSCALE} only (the JAX class fails at its "
+                         "first call with any other)")
+    return upscale
+
+
 class SRRegressClsFeature(nn.Module):
     """Frozen-SR-feature fused height + build prediction. ``sr_chans`` is
     the width of the SR features (the RRDBNet's ``num_feat``);
@@ -82,17 +97,19 @@ class SRRegressClsFeature(nn.Module):
                  chans_build: int = 2, sr_chans: int = 64,
                  decoder_channels: Sequence[int] = DECODER_CHANNELS,
                  drop_connect_rate: float = DROP_CONNECT_RATE,
-                 compute_mode: str = "literal", remat: bool = False):
+                 compute_mode: str = "literal", remat: bool = False,
+                 upscale: int = UPSCALE):
         super().__init__()
         if compute_mode not in ("literal", "packed"):
             raise ValueError(f"compute_mode {compute_mode!r}: 'literal' or "
                              "'packed'")
+        upscale = _fused_upscale(upscale)
         self.compute_mode, self.remat = compute_mode, remat
         self.isaggre = isaggre
         mid = _trunk(self, encoder_name, decoder_channels, drop_connect_rate)
         self.hrfeat = HRFeature(sr_chans, super_mid, super_mid)
-        self.reg = HRFuseResidual(mid, super_mid, mid, 1, UPSCALE)
-        self.seg = HRFuseResidual(mid, super_mid, mid, chans_build, UPSCALE)
+        self.reg = HRFuseResidual(mid, super_mid, mid, 1, upscale)
+        self.seg = HRFuseResidual(mid, super_mid, mid, chans_build, upscale)
         if isaggre:
             self.aggre_height = tconv(mid, 1, 3)
 
@@ -125,19 +142,21 @@ class SRRegressClsFeature(nn.Module):
 
 
 class SRRegressClsNosuper(nn.Module):
-    """The no-SR ablation: height + build (+ the 64x64 aggregated height
-    with ``isaggre``) from the S2+S1 tile alone. ``generator`` draws the
-    encoder's drop-connect masks in training mode."""
+    """The no-SR ablation: height + build at x``upscale`` of the tile (+ the
+    aggregated height at the tile's size with ``isaggre``) from the S2+S1
+    tile alone. ``generator`` draws the encoder's drop-connect masks in
+    training mode."""
 
     def __init__(self, encoder_name: str = "efficientnet-b4",
                  isaggre: bool = False, chans_build: int = 2,
                  decoder_channels: Sequence[int] = DECODER_CHANNELS,
-                 drop_connect_rate: float = DROP_CONNECT_RATE):
+                 drop_connect_rate: float = DROP_CONNECT_RATE,
+                 upscale: int = UPSCALE):
         super().__init__()
         self.isaggre = isaggre
         mid = _trunk(self, encoder_name, decoder_channels, drop_connect_rate)
-        self.reg = HRUpsample(mid, 1, UPSCALE)
-        self.seg = HRUpsample(mid, chans_build, UPSCALE)
+        self.reg = HRUpsample(mid, 1, upscale)
+        self.seg = HRUpsample(mid, chans_build, upscale)
         if isaggre:
             self.aggre_height = tconv(mid, 1, 3)
 
@@ -161,16 +180,18 @@ class SRRegressClsFeatureGeo(nn.Module):
                  super_mid: int = 16, geo_mid: int = 16, isaggre: bool = False,
                  chans_build: int = 2, sr_chans: int = 64,
                  decoder_channels: Sequence[int] = DECODER_CHANNELS,
-                 drop_connect_rate: float = DROP_CONNECT_RATE):
+                 drop_connect_rate: float = DROP_CONNECT_RATE,
+                 upscale: int = UPSCALE):
         super().__init__()
+        upscale = _fused_upscale(upscale)
         self.in_chans, self.isaggre = in_chans, isaggre
         mid = _trunk(self, encoder_name, decoder_channels, drop_connect_rate,
                      in_chans)
         self.hrfeat = HRFeature(sr_chans, super_mid, super_mid)
         self.geoprior = GeoNet(geo_chans, geo_mid)
-        self.reg = HRFuseResidual(mid + geo_mid, super_mid, mid, 1, UPSCALE)
+        self.reg = HRFuseResidual(mid + geo_mid, super_mid, mid, 1, upscale)
         self.seg = HRFuseResidual(mid + geo_mid, super_mid, mid, chans_build,
-                                  UPSCALE)
+                                  upscale)
         if isaggre:
             self.aggre_height = tconv(mid + geo_mid, 1, 3)
 
@@ -195,13 +216,15 @@ class SRRegressClsFeatureRefine(nn.Module):
                  super_mid: int = 16, isaggre: bool = False,
                  chans_build: int = 2, sr_chans: int = 64,
                  decoder_channels: Sequence[int] = DECODER_CHANNELS,
-                 drop_connect_rate: float = DROP_CONNECT_RATE):
+                 drop_connect_rate: float = DROP_CONNECT_RATE,
+                 upscale: int = UPSCALE):
         super().__init__()
+        upscale = _fused_upscale(upscale)
         self.isaggre = isaggre
         mid = _trunk(self, encoder_name, decoder_channels, drop_connect_rate)
         self.hrfeat = HRFeature(sr_chans, super_mid, super_mid)
-        self.reg = HRFuseResidual(mid, super_mid, mid, 1, UPSCALE)
-        self.seg = HRFuseResidual(mid, super_mid, mid, chans_build, UPSCALE)
+        self.reg = HRFuseResidual(mid, super_mid, mid, 1, upscale)
+        self.seg = HRFuseResidual(mid, super_mid, mid, chans_build, upscale)
         self.refine = RefineResidual(1 + chans_build + super_mid, 8, 1)
         if isaggre:
             self.aggre_height = tconv(mid, 1, 3)

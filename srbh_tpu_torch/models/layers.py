@@ -25,10 +25,10 @@ from srbh_tpu_torch.ops.shuffle import pixel_shuffle
 
 
 def tconv(in_ch: int, out_ch: int, kernel_size: int = 3, stride: int = 1,
-          bias: bool = True) -> nn.Conv2d:
+          bias: bool = True, groups: int = 1) -> nn.Conv2d:
     """Conv with torch padding semantics (``k//2`` both sides)."""
     return nn.Conv2d(in_ch, out_ch, kernel_size, stride, kernel_size // 2,
-                     bias=bias)
+                     bias=bias, groups=groups)
 
 
 def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
@@ -85,15 +85,18 @@ def bn_eval_packed(bn: nn.BatchNorm2d, xp: torch.Tensor) -> torch.Tensor:
 
 
 class ConvBNAct(nn.Sequential):
-    """Conv3x3 -> BatchNorm -> ReLU; children ``0`` (conv) and ``1`` (bn) are
-    smp's ``Conv2dReLU`` names."""
+    """Conv (``k//2`` padding) -> BatchNorm -> activation; children ``0``
+    (conv) and ``1`` (bn) are smp's ``Conv2dReLU`` names, ``2`` the
+    activation (``act()``; none with ``act=None``). ``bn_momentum`` is
+    torch's convention: the JAX package's flax momentum 0.9 is torch's 0.1
+    (the share of a new batch's statistics)."""
 
-    def __init__(self, in_ch: int, out_ch: int):
-        super().__init__(
-            tconv(in_ch, out_ch, 3, bias=False),
-            TorchBatchNorm(out_ch),
-            nn.ReLU(),
-        )
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
+                 stride: int = 1, use_bias: bool = False, act=nn.ReLU,
+                 bn_momentum: float = 0.1, bn_epsilon: float = 1e-5):
+        layers = [tconv(in_ch, out_ch, kernel_size, stride, bias=use_bias),
+                  nn.BatchNorm2d(out_ch, eps=bn_epsilon, momentum=bn_momentum)]
+        super().__init__(*layers, *([act()] if act is not None else []))
 
 
 class BasicBlock(nn.Module):
@@ -147,18 +150,21 @@ class PixelShuffle(nn.Module):
 
 class PixelShuffleUpsampler(nn.Sequential):
     """Conv + depth-to-space ladder: x2 per octave for power-of-two scales, a
-    single x3 step for scale 3. Convs sit at even indices (``{2k}``).
+    single x3 step for scale 3. Convs (with a bias unless ``use_bias`` is
+    False) sit at even indices (``{2k}``).
     ``packed_output=True`` (power-of-two scales) leaves out the last
     shuffle and returns the parity-0 packed form of the output: a channel
     gather of the last conv's (``s2d.ps_to_pack_perm``)."""
 
-    def __init__(self, scale: int, n_feats: int):
+    def __init__(self, scale: int, n_feats: int, use_bias: bool = True):
         layers = []
         if scale & (scale - 1) == 0:
             for _ in range(int(math.log2(scale))):
-                layers += [tconv(n_feats, 4 * n_feats, 3), PixelShuffle(2)]
+                layers += [tconv(n_feats, 4 * n_feats, 3, bias=use_bias),
+                           PixelShuffle(2)]
         elif scale == 3:
-            layers += [tconv(n_feats, 9 * n_feats, 3), PixelShuffle(3)]
+            layers += [tconv(n_feats, 9 * n_feats, 3, bias=use_bias),
+                       PixelShuffle(3)]
         else:
             raise NotImplementedError(f"scale {scale}")
         super().__init__(*layers)

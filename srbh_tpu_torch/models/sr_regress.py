@@ -10,7 +10,8 @@ Counterparts of ``srbh_tpu/models/sr_regress.py`` (mymodels.py):
 * :class:`SRRegressClsDecision` (:181-228): an ``EDSR(return_features=
   "hr")`` branch over the first ``super_in`` channels, whose HR features
   fuse with the decoders through :class:`HRFuseX2`; returns (sr, height,
-  build).
+  build). Its ``upscale`` must be the EDSR features' 4: the JAX class takes
+  other values and fails at its first call.
 
 Names: ``super_res.*`` (:mod:`srbh_tpu_torch.models.edsr`'s), ``encoder.*``
 (efficientnet-pytorch's), ``decoder*.blocks.*`` (smp's), and the heads by
@@ -28,6 +29,7 @@ from srbh_tpu_torch.models.height_model import (
     DECODER_CHANNELS,
     IN_CHANNELS,
     UPSCALE,
+    _fused_upscale,
     _trunk,
 )
 from srbh_tpu_torch.models.hrfuse import HRFuseX2
@@ -76,15 +78,17 @@ class SRRegressClsDecision(nn.Module):
                  in_chans: int = IN_CHANNELS, super_in: int = 4,
                  super_mid: int = 64,
                  decoder_channels: Sequence[int] = DECODER_CHANNELS,
-                 drop_connect_rate: float = DROP_CONNECT_RATE):
+                 drop_connect_rate: float = DROP_CONNECT_RATE,
+                 upscale: int = UPSCALE):
         super().__init__()
+        upscale = _fused_upscale(upscale, "EDSR")
         self.super_in = super_in
         self.super_res = EDSR(super_in, n_feats=super_mid, n_out=3,
                               return_features="hr")
         mid = _trunk(self, encoder_name, decoder_channels, drop_connect_rate,
                      in_chans)
-        self.seg1 = HRFuseX2(super_mid, mid, 1, UPSCALE)
-        self.seg2 = HRFuseX2(super_mid, mid, 2, UPSCALE)
+        self.seg1 = HRFuseX2(super_mid, mid, 1, upscale)
+        self.seg2 = HRFuseX2(super_mid, mid, 2, upscale)
 
     def forward(self, x, generator=None):
         sup_out, sup_fea = self.super_res(x[:, :self.super_in])

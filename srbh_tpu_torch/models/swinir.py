@@ -16,6 +16,10 @@ model takes and returns NCHW images; inside the Swin blocks the features are
   and ``img_range`` normalise them.
 * Heads: 'pixelshuffle', 'pixelshuffledirect', 'nearest+conv' and '' (the
   denoise / JPEG CAR global residual); RSTB tails '1conv' and '3conv'.
+* The official options ``qkv_bias`` (the attention's ``qkv`` projection has
+  a bias, default True) and ``patch_norm`` (a LayerNorm after the patch
+  embedding, default True) thread from :class:`SwinIR` down to the blocks;
+  without them the state dict has no ``qkv.bias`` / ``patch_embed.norm``.
 
 State-dict names are the reference's (``layers.{l}.residual_group.blocks.
 {b}.*``, ``layers.{l}.conv``, ``patch_embed.norm``, ``norm``, ...). The
@@ -118,12 +122,13 @@ class WindowAttention(nn.Module):
     bias. ``use_kernel`` selects the Hopper kernel over the plain version."""
 
     def __init__(self, dim: int, window_size: int, num_heads: int,
-                 qk_scale: Optional[float] = None, use_kernel: bool = True):
+                 qkv_bias: bool = True, qk_scale: Optional[float] = None,
+                 use_kernel: bool = True):
         super().__init__()
         self.num_heads = num_heads
         self.qk_scale = qk_scale
         self.use_kernel = use_kernel
-        self.qkv = nn.Linear(dim, 3 * dim)
+        self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros((2 * window_size - 1) ** 2, num_heads))
@@ -149,10 +154,13 @@ class WindowAttention(nn.Module):
 
 
 class Mlp(nn.Module):
-    def __init__(self, dim: int, hidden: int):
+    """fc1 -> GELU -> fc2, from ``dim`` to ``out`` features (``None``:
+    ``dim``)."""
+
+    def __init__(self, dim: int, hidden: int, out: Optional[int] = None):
         super().__init__()
         self.fc1 = nn.Linear(dim, hidden)
-        self.fc2 = nn.Linear(hidden, dim)
+        self.fc2 = nn.Linear(hidden, dim if out is None else out)
 
     def forward(self, x):
         return self.fc2(F.gelu(self.fc1(x)))
@@ -166,14 +174,14 @@ class SwinTransformerBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, window_size: int = 7,
                  shift_size: int = 0, mlp_ratio: float = 4.0,
                  img_size: int = 64, use_kernel: bool = True,
-                 drop_path: float = 0.0):
+                 drop_path: float = 0.0, qkv_bias: bool = True):
         super().__init__()
         self.drop_path = drop_path
         self.window_size = min(window_size, img_size)
         self.shift_size = 0 if img_size <= window_size else shift_size
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.attn = WindowAttention(dim, self.window_size, num_heads,
-                                    use_kernel=use_kernel)
+                                    qkv_bias=qkv_bias, use_kernel=use_kernel)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
@@ -207,14 +215,15 @@ class BasicLayer(nn.Module):
 
     def __init__(self, dim: int, depth: int, num_heads: int, window_size: int,
                  mlp_ratio: float, img_size: int, use_kernel: bool,
-                 drop_paths: Sequence[float] = ()):
+                 drop_paths: Sequence[float] = (), qkv_bias: bool = True):
         super().__init__()
         self.blocks = nn.ModuleList(
             SwinTransformerBlock(
                 dim, num_heads, window_size,
                 shift_size=0 if i % 2 == 0 else window_size // 2,
                 mlp_ratio=mlp_ratio, img_size=img_size, use_kernel=use_kernel,
-                drop_path=drop_paths[i] if i < len(drop_paths) else 0.0)
+                drop_path=drop_paths[i] if i < len(drop_paths) else 0.0,
+                qkv_bias=qkv_bias)
             for i in range(depth))
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
@@ -229,11 +238,11 @@ class RSTB(nn.Module):
     def __init__(self, dim: int, depth: int, num_heads: int, window_size: int,
                  mlp_ratio: float = 4.0, resi_connection: str = "1conv",
                  img_size: int = 64, use_kernel: bool = True,
-                 drop_paths: Sequence[float] = ()):
+                 drop_paths: Sequence[float] = (), qkv_bias: bool = True):
         super().__init__()
         self.residual_group = BasicLayer(dim, depth, num_heads, window_size,
                                          mlp_ratio, img_size, use_kernel,
-                                         drop_paths)
+                                         drop_paths, qkv_bias)
         if resi_connection == "1conv":
             self.conv = tconv(dim, dim, 3)
         elif resi_connection == "3conv":
@@ -252,9 +261,12 @@ class RSTB(nn.Module):
 
 
 class PatchEmbed(nn.Module):
-    def __init__(self, dim: int):
+    """The patch embedding's LayerNorm (``norm``), or none without
+    ``norm``."""
+
+    def __init__(self, dim: int, norm: bool = True):
         super().__init__()
-        self.norm = nn.LayerNorm(dim, eps=1e-5)
+        self.norm = nn.LayerNorm(dim, eps=1e-5) if norm else nn.Identity()
 
 
 class SwinIR(nn.Module):
@@ -266,7 +278,8 @@ class SwinIR(nn.Module):
                  upscale: int = 2, img_range: float = 1.0,
                  upsampler: str = "", resi_connection: str = "1conv",
                  num_feat: int = 64,
-                 img_size: int = 64, use_kernel: bool = True):
+                 img_size: int = 64, use_kernel: bool = True,
+                 qkv_bias: bool = True, patch_norm: bool = True):
         super().__init__()
         self.window_size = window_size
         self.upscale = upscale
@@ -276,13 +289,13 @@ class SwinIR(nn.Module):
         self.register_buffer("mean", torch.tensor(mean).reshape(1, -1, 1, 1),
                              persistent=False)
         self.conv_first = tconv(in_chans, embed_dim, 3)
-        self.patch_embed = PatchEmbed(embed_dim)
+        self.patch_embed = PatchEmbed(embed_dim, patch_norm)
         dpr = [float(v) for v in np.linspace(0, drop_path_rate, sum(depths))]
         starts = np.cumsum([0, *depths])
         self.layers = nn.ModuleList(
             RSTB(embed_dim, depth, heads, window_size, mlp_ratio,
                  resi_connection, img_size, use_kernel,
-                 dpr[start: start + depth])
+                 dpr[start: start + depth], qkv_bias)
             for depth, heads, start in zip(depths, num_heads, starts))
         self.norm = nn.LayerNorm(embed_dim, eps=1e-5)
         self.conv_after_body = tconv(embed_dim, embed_dim, 3)

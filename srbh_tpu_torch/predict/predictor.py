@@ -207,11 +207,12 @@ def predict_city(
     else:
         acc = MosaicAccumulator(dataset.width, dataset.height, chans_build,
                                 upscale)
-    # worker processes read the windows while the device computes; the
-    # windows' positions stay on the host, where both stitchers read them
+    # worker processes read the windows while the device computes, and two
+    # batches are copied to the card ahead of the step; the windows'
+    # positions stay on the host, where both stitchers read them
     loader = DataLoader(dataset, batch_size=batch_size, shuffle=False,
                         num_workers=4, device_put=True, device=dev,
-                        host_keys=("pos",))
+                        host_keys=("pos",), prefetch=2)
     for batch in loader:
         h, b = step(batch["image"])
         if stitch == "device":

@@ -5,9 +5,12 @@ Counterpart of ``srbh_tpu/train/checkpoint.py`` (train.py:151-168,
 epoch a snapshot ``checkpoint{epoch}``, and an improved validation RMSE
 ``model_best``. A checkpoint is one ``torch.save`` file holding ``epoch``,
 ``best_rmse``, ``step``, ``model`` (the height model's state dict, with the
-reference's names), ``log_vars`` and ``optimizer`` (the Adam state, so a
-resume continues exactly), all as host tensors. It is written to
-``<path>.tmp`` and renamed into place.
+reference's names) and ``log_vars``, all as host tensors. It is written to
+``<path>.tmp`` and renamed into place. As in the reference (train.py:163-164,
+207) and the JAX package, the optimizer state is neither saved nor restored
+by default, so a resumed run starts a fresh Adam; ``save_opt_state=True``
+adds ``optimizer`` (the Adam state) to every file written, and a resume from
+such a file continues exactly.
 
 ``save_checkpoint(..., async_save=True)`` (``srbh_tpu/train/checkpoint.py:
 71-135``) copies the state to the host before it returns, so the caller may
@@ -73,15 +76,17 @@ def wait_for_saves() -> None:
 
 def save_checkpoint(logdir: str, state, epoch: int, best_rmse: float,
                     snapshot_every: int = 5, is_best: bool = False,
+                    save_opt_state: bool = False,
                     async_save: bool = False) -> str:
     """Write ``checkpoint`` (and ``checkpoint{epoch}``, ``model_best``) in
-    ``logdir``; returns the path of ``checkpoint``. With ``async_save`` the
-    files are written on a background thread after this returns: call
-    :func:`wait_for_saves` before reading them."""
+    ``logdir``; returns the path of ``checkpoint``. ``save_opt_state`` adds
+    the optimizer state. With ``async_save`` the files are written on a
+    background thread after this returns: call :func:`wait_for_saves`
+    before reading them."""
     global _pending
     wait_for_saves()  # serialise with the save in flight; raise its failure
     model = whole(state.model.state_dict())
-    optimizer = whole(state.optimizer.state_dict())
+    optimizer = whole(state.optimizer.state_dict()) if save_opt_state else None
     path = os.path.join(logdir, "checkpoint")
     if not dist.is_initialized() or dist.get_rank() == 0:
         payload = {
@@ -90,8 +95,9 @@ def save_checkpoint(logdir: str, state, epoch: int, best_rmse: float,
             "step": int(state.step),
             "model": _host_copy(model),
             "log_vars": _host_copy(state.log_vars),
-            "optimizer": _host_copy(optimizer),
         }
+        if save_opt_state:
+            payload["optimizer"] = _host_copy(optimizer)
 
         def commit():
             _save(payload, path)
@@ -211,8 +217,10 @@ def _payload_from_reference(payload: dict) -> dict:
 
 def restore_into_state(state, payload: dict) -> None:
     """Load a payload into ``state``: model, log-vars (kept when the payload
-    has none), step, and the optimizer state if present; whole tensors are
-    cut to an FSDP2 state's shards."""
+    has none), step, and the optimizer state if present (a file written
+    without ``save_opt_state`` leaves the state's optimizer as it is: a
+    fresh one starts anew, as the reference's resume does); whole tensors
+    are cut to an FSDP2 state's shards."""
     own = state.model.state_dict()
     state.model.load_state_dict({k: shard_like(own[k], v) if k in own else v
                                  for k, v in payload["model"].items()})

@@ -28,9 +28,10 @@ sharded on every rank with the global batch's metrics; only rank 0 prints
 and writes.
 
 ``--remat`` recomputes the height model's 256^2 fusion stack in the
-backward pass (``SRRegressClsFeature(remat=True)``). ``save_opt_state`` is
-accepted and changes nothing: every checkpoint holds the optimizer state
-(exact resume). ``--async_checkpoint`` writes each epoch's checkpoint on a
+backward pass (``SRRegressClsFeature(remat=True)``). ``save_opt_state``
+(off by default, as in the reference and the JAX package) writes Adam's
+state into every checkpoint, so a resume continues exactly; without it a
+resumed run starts a fresh Adam (train.py:163-164, 207). ``--async_checkpoint`` writes each epoch's checkpoint on a
 background thread while training goes on (``train/checkpoint.py``);
 :func:`main` joins the last write before it returns, and before it or
 :func:`main_test` reads a checkpoint.
@@ -58,7 +59,6 @@ from srbh_tpu_torch.metrics.writers import (
     acc2file_seg,
 )
 from srbh_tpu_torch.models.height_model import (
-    UPSCALE,
     SRRegressClsFeature,
     SRRegressClsNosuper,
 )
@@ -82,22 +82,18 @@ from srbh_tpu_torch.train.steps import (
     make_train_step,
 )
 
-def _check_supported(cfg: TrainConfig) -> None:
-    if cfg.upscale != UPSCALE:
-        raise NotImplementedError(f"upscale {cfg.upscale}: the port's height "
-                                  f"model is x{UPSCALE}")
-
-
 def build_models(cfg: TrainConfig, compute_mode: str = "literal"):
     """(height model, frozen SR model) with weights drawn from
     ``cfg.seed`` (on the CPU, so every device gets the same ones); the
-    nosuper ablation (``model_variant="nosuper"``) has no SR model. The
+    nosuper ablation (``model_variant="nosuper"``) has no SR model. Both
+    take ``cfg.upscale`` (the feature model raises on any but 4); the
     feature model takes ``cfg.remat`` and ``compute_mode`` (``"packed"``:
     inference only)."""
     gen = torch.Generator().manual_seed(cfg.seed)
     if cfg.model_variant == "nosuper":
         model = SRRegressClsNosuper(cfg.encoder_name, isaggre=cfg.isaggre,
-                                    chans_build=cfg.chans_build)
+                                    chans_build=cfg.chans_build,
+                                    upscale=cfg.upscale)
         return init_weights(model, gen), None
     if cfg.model_variant != "feature":
         raise ValueError(f"model_variant {cfg.model_variant!r}: the port "
@@ -108,7 +104,8 @@ def build_models(cfg: TrainConfig, compute_mode: str = "literal"):
                                 isaggre=cfg.isaggre,
                                 chans_build=cfg.chans_build,
                                 sr_chans=cfg.sr_num_feat,
-                                compute_mode=compute_mode, remat=cfg.remat)
+                                compute_mode=compute_mode, remat=cfg.remat,
+                                upscale=cfg.upscale)
     init_weights(sr, gen)
     init_weights(model, gen)
     return model, sr
@@ -189,7 +186,6 @@ def main(cfg: TrainConfig, writer=None,
     group (``torchrun``, or ``parallel.mesh.initialize_distributed``):
     without one it raises."""
     dev = resolve_device(device)
-    _check_supported(cfg)
     fsdp = fsdp or cfg.fsdp
     n = world()
     if cfg.batch_size % n:
@@ -304,6 +300,7 @@ def main(cfg: TrainConfig, writer=None,
             best_rmse = min(val_rmses.avg, best_rmse)
         save_checkpoint(cfg.logdir, state, epoch, best_rmse,
                         snapshot_every=5, is_best=is_best,
+                        save_opt_state=cfg.save_opt_state,
                         async_save=cfg.async_checkpoint)
         say(f"epoch {epoch}: lr {lr:.6f} train loss {losses.avg:.3f} "
             f"rmse {rmses.avg:.3f} | val rmse {val_rmses.avg:.3f}"
@@ -360,7 +357,6 @@ def main_test(cfg: TrainConfig, num_sample: int = 100, suffix: str = "",
     metrics stay on the device until the files are written.
     ``max_batches`` cuts the loop (0 evaluates nothing: RMSE 0.0)."""
     dev = resolve_device(device)
-    _check_supported(cfg)
     path = os.path.join(cfg.logdir, cfg.checkpoint)
     wait_for_saves()  # a checkpoint written asynchronously is read whole
     if not os.path.isfile(path) and os.path.isfile(path + ".npz"):

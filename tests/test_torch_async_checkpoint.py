@@ -81,7 +81,8 @@ def test_async_save_writes_what_a_sync_save_writes(tmp_path):
     for name, async_save in (("sync", False), ("async", True)):
         os.makedirs(tmp_path / name)
         checkpoint.save_checkpoint(str(tmp_path / name), state, 5, 1.5,
-                                   is_best=True, async_save=async_save)
+                                   is_best=True, save_opt_state=True,
+                                   async_save=async_save)
     checkpoint.wait_for_saves()
     for f in FILES:
         assert (tmp_path / "sync" / f).read_bytes() == (tmp_path / "async" / f).read_bytes(), f
@@ -95,7 +96,7 @@ def test_a_step_after_the_call_does_not_reach_the_file(tmp_path, monkeypatch):
                         lambda payload, path: release.wait(30) and save(payload, path))
     snap = _snapshot(state)
     path = checkpoint.save_checkpoint(str(tmp_path), state, 1, 2.0,
-                                      async_save=True)
+                                      save_opt_state=True, async_save=True)
     assert not os.path.exists(path)  # returned before the file is written
     _step(state)  # parameters and moments change in place
     release.set()
@@ -110,11 +111,13 @@ def test_a_step_after_the_call_does_not_reach_the_file(tmp_path, monkeypatch):
 
 def test_two_async_saves_serialise_and_the_last_wins(tmp_path):
     state = _state()
-    checkpoint.save_checkpoint(str(tmp_path), state, 1, 9.0, async_save=True)
+    checkpoint.save_checkpoint(str(tmp_path), state, 1, 9.0,
+                               save_opt_state=True, async_save=True)
     first = checkpoint._pending
     _step(state)
     snap = _snapshot(state)
-    checkpoint.save_checkpoint(str(tmp_path), state, 2, 8.0, async_save=True)
+    checkpoint.save_checkpoint(str(tmp_path), state, 2, 8.0,
+                               save_opt_state=True, async_save=True)
     assert first.done()  # the second save joined the first
     checkpoint.wait_for_saves()
     payload = checkpoint.load_checkpoint(str(tmp_path / "checkpoint"))
@@ -130,14 +133,15 @@ def test_a_failed_write_raises_once(tmp_path, monkeypatch, where):
         raise OSError("disk full")
 
     monkeypatch.setattr(checkpoint, "_save", full_disk)
-    checkpoint.save_checkpoint(str(tmp_path), state, 1, 1.0, async_save=True)
+    checkpoint.save_checkpoint(str(tmp_path), state, 1, 1.0,
+                               save_opt_state=True, async_save=True)
     monkeypatch.undo()
     with pytest.raises(RuntimeError, match="async checkpoint save failed") as err:
         if where == "wait_for_saves":
             checkpoint.wait_for_saves()
         else:
             checkpoint.save_checkpoint(str(tmp_path), state, 2, 1.0,
-                                       async_save=True)
+                                       save_opt_state=True, async_save=True)
     assert isinstance(err.value.__cause__, OSError)
     checkpoint.wait_for_saves()  # reported once
     assert not os.path.exists(tmp_path / "checkpoint")
@@ -159,8 +163,9 @@ def _equal(a, b):
 
 
 def test_main_with_async_checkpoints_writes_and_resumes_alike(data):  # noqa: F811
-    sync = main(make_cfg(data, "sync", 2), device="cpu")
-    cfg = make_cfg(data, "async_whole", 2)
+    # the optimizer state is saved, so the resumed run continues exactly
+    sync = main(make_cfg(data, "sync", 2, save_opt_state=True), device="cpu")
+    cfg = make_cfg(data, "async_whole", 2, save_opt_state=True)
     cfg.async_checkpoint = True
     whole = main(cfg, device="cpu")
     assert checkpoint._pending is None  # main joined its last save
@@ -170,7 +175,7 @@ def test_main_with_async_checkpoints_writes_and_resumes_alike(data):  # noqa: F8
         assert _equal(got[f], want[f]), f
     assert whole.step == sync.step == 4
 
-    first = make_cfg(data, "async_resumed", 1)
+    first = make_cfg(data, "async_resumed", 1, save_opt_state=True)
     first.async_checkpoint = True
     main(first, device="cpu")
     first.maxepoch = 2

@@ -741,7 +741,8 @@ def rank_fsdp(root, logdir, single_checkpoint):
     from srbh_tpu_torch.train.steps import make_predict_step
     from srbh_tpu_torch.train.trainer import main
 
-    state = main(_trainer_cfg(root, logdir), device="cpu", fsdp=True)
+    state = main(_trainer_cfg(root, logdir, save_opt_state=True), device="cpu",
+                 fsdp=True)
     shards = {n: (p.to_local().numel(), p.numel())
               for n, p in state.model.named_parameters()}
     image = np.random.default_rng(4).uniform(0, 1, (2, 32, 32, 8)).astype(

@@ -8,6 +8,16 @@ without a leading underscore; in the twin an import binds a name too) and
 accept every ``add_argument`` flag of it. Each name the port lacks on
 purpose stands in :data:`DELIBERATE` with its reason, and an entry whose
 name the port has since gained fails as stale.
+
+The same holds one level down, for each public function and class of a JAX
+module whose twin binds the same name: the twin must take every parameter
+of the JAX function; a flax module's or a dataclass's fields must be
+parameters of the twin's ``__init__`` (or its fields); and a plain class's
+public methods must be the twin's methods (a twin class's bases in its own
+module count). A parameter the port renamed stands in :data:`PARAM_RENAMES`
+with the twin's name; one the port lacks on purpose stands in
+:data:`DELIBERATE_PARAMS` with its reason. Either entry fails as stale when
+the JAX package drops the parameter or the port gains it.
 """
 import ast
 from functools import lru_cache
@@ -208,3 +218,320 @@ def test_deliberate_entry_is_not_stale(entry):
 def test_modules_without_a_twin_still_exist(module):
     assert (JAX / module).is_file() and NO_TWIN[module].strip()
     assert not _twin(module).exists()
+
+
+# ------------------------------------------------------------ parameters
+
+_FUNCTIONAL = ("a variables tree of flax's functional apply; the port's "
+               "modules hold their parameters and buffers")
+_STATE = ("a field or constructor of the immutable flax train state; the "
+          "port's state is a mutable object holding its modules and "
+          "torch.optim optimizers")
+_COMPUTE_DTYPE = ("the flax module's compute dtype; the port's module "
+                  "computes in its parameters' dtype (.to(dtype)) or under "
+                  "torch.autocast")
+_JAX_KEY = ("a JAX PRNG key; the port draws from a torch.Generator "
+            "(generator=) or takes the drawn values")
+_JAX_EXPORT = ("jax.export's artifact and platforms; the port exports a "
+               "torch.export ExportedProgram")
+_TOOL_MAIN = ("a keyword argument of the JAX tool's main(); the port's "
+              "main(argv) takes it as a flag, which test_port_has_the_jax_"
+              "surface holds")
+_PACKED = ("the packed (space-to-depth) form as a field; the port's packed "
+           "forms are methods and functions of ops/s2d.py on the literal "
+           "module's parameters (forward_packed, packed_output=)")
+_MESH = ("a jax.sharding.Mesh; the port's function takes the torch process "
+         "group of the data axis (group=)")
+_FLAX_NAME = "a flax submodule's name; torch names a child by its attribute"
+_PALLAS_TRAIN = ("the JAX blocks decide the shift from static_size; the "
+                 "port's from img_size")
+
+# (JAX module, function or class, parameter) -> the twin's parameter name
+PARAM_RENAMES = {
+    ("models/layers.py", "tconv", "features"): "out_ch",
+    ("models/layers.py", "tconv", "use_bias"): "bias",
+    ("models/layers.py", "ConvBNAct", "features"): "out_ch",
+    ("models/layers.py", "TorchBatchNorm", "epsilon"): "eps",
+    ("models/swinir.py", "WindowAttention", "use_pallas"): "use_kernel",
+    ("models/swinir.py", "SwinTransformerBlock", "use_pallas"): "use_kernel",
+    ("models/swinir.py", "SwinTransformerBlock", "static_size"): "img_size",
+    ("models/swinir.py", "RSTB", "use_pallas"): "use_kernel",
+    ("models/swinir.py", "RSTB", "static_size"): "img_size",
+    ("models/swinir.py", "SwinIR", "use_pallas"): "use_kernel",
+    ("ops/device_aug.py", "flip", "arr"): "x",
+    ("ops/device_aug.py", "flip", "d"): "code",
+    ("ops/device_aug.py", "grid_shuffle_2x2", "arr"): "x",
+    ("ops/device_aug.py", "rotate_mask_nearest", "angle_deg"): "angle",
+    ("ops/device_aug.py", "rotate_image_lowres", "img_lr"): "img",
+    ("ops/device_aug.py", "rotate_image_lowres", "angle_deg"): "angle",
+    ("ops/quant.py", "quantize_weight", "axis"): "dim",
+    ("ops/quant.py", "int8_conv", "kernel"): "weight",
+    ("parallel/mesh.py", "initialize_distributed", "coordinator"):
+        "init_method",
+    ("parallel/mesh.py", "initialize_distributed", "num_processes"):
+        "world_size",
+    ("parallel/mesh.py", "initialize_distributed", "process_id"): "rank",
+    ("parallel/mesh.py", "replicate", "tree"): "obj",
+    ("parallel/mesh.py", "shard_state_fsdp", "tree"): "module",
+    ("tools/export_model.py", "export_flagship", "sr_model"): "sr",
+    ("train/sr_trainer.py", "adapt_weights_to_1ch", "params"): "state_dict",
+}
+
+_DTYPE_OWNERS = {
+    "models/clip.py": ("ResidualAttentionBlock", "CLIPVisionTransformer",
+                       "MAPVisionTransformer"),
+    "models/discriminators.py": ("UNetDiscriminatorSN",
+                                 "VGGStyleDiscriminator"),
+    "models/edsr.py": ("ResBlock", "EDSR"),
+    "models/efficientnet.py": ("MBConv", "EfficientNetEncoder"),
+    "models/espcn.py": ("ESPCN",),
+    "models/height_model.py": ("SRRegressClsFeature", "SRRegressClsNosuper",
+                               "SRRegressClsFeatureGeo",
+                               "SRRegressClsFeatureRefine"),
+    "models/hrfuse.py": ("HRFeature", "HRFuseResidual", "HRFuse", "HRFuseX2",
+                         "HRUpsample", "GeoNet", "RefineResidual"),
+    "models/layers.py": ("tconv", "TorchBatchNorm", "ConvBNAct", "BasicBlock",
+                         "PixelShuffleUpsampler"),
+    "models/lpips.py": ("AlexNetFeatures", "LPIPS"),
+    "models/rrdbnet.py": ("ResidualDenseBlock", "RRDB", "RRDBNet",
+                          "RRDBNetSimple"),
+    "models/sr_regress.py": ("SRRegress", "SRRegressClsEDSR",
+                             "SRRegressClsDecision"),
+    "models/swinir.py": ("WindowAttention", "Mlp", "SwinTransformerBlock",
+                         "RSTB", "SwinIR"),
+    "models/unet_decoder.py": ("DecoderBlock", "UnetDecoder"),
+    "models/vgg.py": ("VGG19Features",),
+    "ops/s2d.py": ("conv3x3_packed", "conv1x1_packed"),
+    "tools/swinir_harness.py": ("define_model",),
+    "train/trainer.py": ("build_models",),
+}
+
+# (JAX module, function or class, parameter or "method()") -> why the twin
+# lacks it
+DELIBERATE_PARAMS = {
+    **{(m, owner, "dtype"): _COMPUTE_DTYPE
+       for m, owners in _DTYPE_OWNERS.items() for owner in owners},
+    ("data/augment.py", "grid_shuffle_2x2", "rng"):
+        "the port's grid_shuffle_2x2(arr, order) applies a drawn order to "
+        "one array; augment_pair draws rng.permutation(4) once and applies "
+        "it to the image and the mask (the same draws)",
+    ("data/augment.py", "grid_shuffle_2x2", "img"):
+        "the port's grid_shuffle_2x2 takes one array (arr) and the order",
+    ("data/augment.py", "grid_shuffle_2x2", "mask"):
+        "the port's grid_shuffle_2x2 takes one array (arr) and the order",
+    ("data/pipeline.py", "DataLoader", "sharding"): _JAX_SHARDING,
+    ("losses/sr.py", "g_path_regularize", "key"): _JAX_KEY,
+    ("losses/sr.py", "gradient_penalty_loss", "key"): _JAX_KEY,
+    ("ops/device_aug.py", "augment_batch", "key"): _JAX_KEY,
+    ("metrics/learned.py", "calculate_clipscore", "variables"): _FUNCTIONAL,
+    ("metrics/learned.py", "calculate_clipscore_pt", "variables"):
+        _FUNCTIONAL,
+    ("metrics/learned.py", "calculate_lpips", "variables"): _FUNCTIONAL,
+    ("metrics/learned.py", "calculate_lpips_pt", "variables"): _FUNCTIONAL,
+    ("models/dual_head.py", "dual_head_apply", "params"): _FUNCTIONAL,
+    ("models/dual_head.py", "dual_head_apply", "batch_stats"): _FUNCTIONAL,
+    ("parallel/pipeline.py", "rrdb_pipeline_features", "variables"):
+        _FUNCTIONAL,
+    ("predict/predictor.py", "predict_city", "variables"): _FUNCTIONAL,
+    ("predict/predictor.py", "predict_city", "sr_params"): _FUNCTIONAL,
+    ("predict/predictor.py", "predict_cities", "variables"): _FUNCTIONAL,
+    ("predict/predictor.py", "predict_cities", "sr_params"): _FUNCTIONAL,
+    ("tools/export_model.py", "export_flagship", "variables"): _FUNCTIONAL,
+    ("tools/export_model.py", "export_flagship", "sr_params"): _FUNCTIONAL,
+    ("tools/swinir_harness.py", "run_folder", "variables"): _FUNCTIONAL,
+    ("tools/export_model.py", "export_flagship", "platforms"): _JAX_EXPORT,
+    ("tools/export_model.py", "load_exported", "data"): _JAX_EXPORT,
+    ("models/hrfuse.py", "HRFeature", "packed"): _PACKED,
+    ("models/hrfuse.py", "HRFuseResidual", "packed"): _PACKED,
+    ("models/layers.py", "BasicBlock", "packed"): _PACKED,
+    ("models/layers.py", "BasicBlock", "kin_perm"): _PACKED,
+    ("models/layers.py", "PixelShuffleUpsampler", "packed_output"):
+        "a forward argument of the port's upsampler (forward(x, "
+        "packed_output=True)); the packed form is ops/s2d.py's",
+    ("models/layers.py", "tconv", "kernel_init"): _FLAX_INIT,
+    ("models/layers.py", "tconv", "name"): _FLAX_NAME,
+    ("models/layers.py", "TorchBatchNorm", "use_running_average"):
+        "flax's train / eval switch as a field; the port's BatchNorm2d "
+        "follows the module's train() / eval() mode",
+    ("models/rrdbnet.py", "ResidualDenseBlock", "growth_init"): _FLAX_INIT,
+    ("models/rrdbnet.py", "RRDB", "growth_init"): _FLAX_INIT,
+    ("parallel/mesh.py", "make_mesh", "devices"):
+        "a list of JAX devices; a torch DeviceMesh spans the process "
+        "group's ranks, one card each",
+    ("parallel/mesh.py", "shard_batch", "mesh"): _MESH,
+    ("parallel/mesh.py", "replicate", "mesh"): _MESH,
+    ("tools/conv_microbench.py", "main", "only"): _TOOL_MAIN,
+    ("tools/loader_bench.py", "main", "n_tiles"): _TOOL_MAIN,
+    ("tools/loader_bench.py", "main", "epochs"): _TOOL_MAIN,
+    ("tools/profile_flagship.py", "main", "batch"): _TOOL_MAIN,
+    ("tools/profile_flagship.py", "main", "only"): _TOOL_MAIN,
+    ("tools/sr_train_bench.py", "main", "batch"): _TOOL_MAIN,
+    ("tools/sr_train_bench.py", "main", "chain"): _CHAIN,
+    ("tools/sr_train_bench.py", "main", "num_block"): _TOOL_MAIN,
+    ("tools/sr_train_bench.py", "main", "num_feat"): _TOOL_MAIN,
+    ("tools/sr_train_bench.py", "main", "num_grow_ch"): _TOOL_MAIN,
+    ("tools/sr_train_bench.py", "main", "lq_size"): _TOOL_MAIN,
+    ("tools/sr_train_bench.py", "main", "perceptual"): _TOOL_MAIN,
+    ("tools/sr_train_bench.py", "main", "disc_feat"): _TOOL_MAIN,
+    ("tools/train_bench.py", "main", "batch"): _TOOL_MAIN,
+    ("tools/train_bench.py", "main", "chain"): _CHAIN,
+    ("tools/swinir_harness.py", "define_model", "training_patch_size"):
+        "the JAX preset ignores it (img_size stays 64 in every preset)",
+    ("tools/swinir_harness.py", "run_folder", "large_model"):
+        "the port's run_folder takes the built model; define_model's "
+        "large_model picks the preset",
+    ("tools/swinir_harness.py", "run_folder", "shape_bucket"):
+        "pads inputs to a few shapes so that XLA compiles few programs; "
+        "eager PyTorch compiles none",
+    ("train/sr_trainer.py", "GANTrainState", "step"): _STATE,
+    ("train/sr_trainer.py", "GANTrainState", "g_params"): _STATE,
+    ("train/sr_trainer.py", "GANTrainState", "d_vars"): _STATE,
+    ("train/sr_trainer.py", "GANTrainState", "g_opt"): _STATE,
+    ("train/sr_trainer.py", "GANTrainState", "d_opt"): _STATE,
+    ("train/sr_trainer.py", "GANTrainState", "g_tx"): _STATE,
+    ("train/sr_trainer.py", "GANTrainState", "d_tx"): _STATE,
+    ("train/state.py", "TrainState", "step"): _STATE,
+    ("train/state.py", "TrainState", "params"): _STATE,
+    ("train/state.py", "TrainState", "batch_stats"): _STATE,
+    ("train/state.py", "TrainState", "opt_state"): _STATE,
+    ("train/state.py", "TrainState", "tx"): _STATE,
+    ("train/state.py", "TrainState", "create()"): _STATE,
+    ("train/trainer.py", "main", "data_parallel"):
+        "the port trains data-parallel whenever its process group has more "
+        "than one rank (or with fsdp); it has no single-process "
+        "multi-device mode",
+    ("utils/profiler.py", "StepTimer", "sync"):
+        "a callable that blocks on JAX's async dispatch; the port's timer "
+        "synchronises the device it is given",
+}
+
+
+def _args(fn) -> list:
+    """A function's parameter names, ``self`` and ``cls`` left out."""
+    a = fn.args
+    return [x.arg for x in a.posonlyargs + a.args + a.kwonlyargs
+            if x.arg not in ("self", "cls")]
+
+
+def _top(tree: ast.Module):
+    """(top-level functions, top-level classes) by name."""
+    fns = {n.name: n for n in tree.body
+           if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef))}
+    classes = {n.name: n for n in tree.body if isinstance(n, ast.ClassDef)}
+    return fns, classes
+
+
+def _bases(cls: ast.ClassDef, classes: dict) -> list:
+    """``cls`` and its bases defined in the same module, base first."""
+    out = []
+    for b in cls.bases:
+        if isinstance(b, ast.Name) and b.id in classes:
+            out += _bases(classes[b.id], classes)
+    return out + [cls]
+
+
+def _has_fields(cls: ast.ClassDef, classes: dict) -> bool:
+    """A flax module, a flax struct or a dataclass."""
+    for c in _bases(cls, classes):
+        if any("dataclass" in ast.unparse(d) for d in c.decorator_list) or \
+                any(ast.unparse(b).endswith(("nn.Module", "PyTreeNode"))
+                    for b in c.bases):
+            return True
+    return False
+
+
+def _fields(cls: ast.ClassDef, classes: dict) -> list:
+    return [n.target.id for c in _bases(cls, classes) for n in c.body
+            if isinstance(n, ast.AnnAssign) and isinstance(n.target, ast.Name)
+            and "ClassVar" not in ast.unparse(n.annotation)]
+
+
+def _methods(cls: ast.ClassDef, classes: dict) -> dict:
+    """Methods and class-level names, a same-module base's included."""
+    out = {}
+    for c in _bases(cls, classes):
+        for n in c.body:
+            if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                out[n.name] = n
+            elif isinstance(n, ast.Assign):
+                out.update((t.id, None) for t in n.targets
+                           if isinstance(t, ast.Name))
+    return out
+
+
+def _jax_members(module: str) -> dict:
+    """``{(function or class, parameter or "method()")}`` of a JAX module's
+    public functions and classes that its twin binds by name, each with the
+    set of names the twin offers for it."""
+    jfns, jclasses = _top(_tree(JAX / module))
+    tfns, tclasses = _top(_tree(_twin(module)))
+
+    def offered(name):
+        if name in tfns:
+            return set(_args(tfns[name])), set()
+        cls = tclasses[name]
+        methods = _methods(cls, tclasses)
+        init = methods.get("__init__")
+        return (set(_args(init) if init else ()) | set(_fields(cls, tclasses)),
+                set(methods))
+
+    out = {}
+    for name, fn in jfns.items():
+        if not name.startswith("_") and (name in tfns or name in tclasses):
+            params, _ = offered(name)
+            out.update(((name, p), params) for p in _args(fn))
+    for name, cls in jclasses.items():
+        if name.startswith("_") or not (name in tfns or name in tclasses):
+            continue
+        params, methods = offered(name)
+        if _has_fields(cls, jclasses):
+            wanted = _fields(cls, jclasses)
+        else:
+            init = _methods(cls, jclasses).get("__init__")
+            wanted = _args(init) if init else []
+        out.update(((name, p), params) for p in wanted)
+        out.update(((name, m + "()"), {k + "()" for k in methods})
+                   for m in _methods(cls, jclasses)
+                   if not m.startswith("_") and m != "setup")
+    return out
+
+
+def _missing(module: str, owner: str, member: str, offered: set) -> bool:
+    """Whether the twin lacks ``member`` under its own or its renamed name."""
+    return PARAM_RENAMES.get((module, owner, member), member) not in offered
+
+
+@pytest.mark.parametrize("module", JAX_MODULES)
+def test_port_has_the_jax_parameters(module):
+    members = _jax_members(module)
+    missing = sorted("{}({})".format(*k) for k, have in members.items()
+                     if _missing(module, *k, have)
+                     and (module, *k) not in DELIBERATE_PARAMS)
+    assert missing == [], (f"{_twin(module).relative_to(REPO)} lacks "
+                           f"{missing} of srbh_tpu/{module}: port them, or "
+                           "list each in PARAM_RENAMES or, with a reason, in "
+                           "DELIBERATE_PARAMS")
+
+
+@pytest.mark.parametrize("entry", sorted(DELIBERATE_PARAMS), ids="::".join)
+def test_deliberate_param_entry_is_not_stale(entry):
+    module, owner, member = entry
+    assert DELIBERATE_PARAMS[entry].strip()
+    assert entry[:3] not in PARAM_RENAMES
+    members = _jax_members(module)
+    assert (owner, member) in members, \
+        f"srbh_tpu/{module}:{owner} no longer has {member}: drop the entry"
+    assert _missing(module, owner, member, members[owner, member]), \
+        f"the port's {owner} now has {member}: drop its DELIBERATE_PARAMS entry"
+
+
+@pytest.mark.parametrize("entry", sorted(PARAM_RENAMES), ids="::".join)
+def test_param_rename_is_not_stale(entry):
+    module, owner, member = entry
+    members = _jax_members(module)
+    assert (owner, member) in members, \
+        f"srbh_tpu/{module}:{owner} no longer has {member}: drop the entry"
+    offered = members[owner, member]
+    assert member not in offered, f"the port's {owner} now takes {member}"
+    assert PARAM_RENAMES[entry] in offered, \
+        f"the port's {owner} has no {PARAM_RENAMES[entry]}"

@@ -56,14 +56,15 @@ def data(tmp_path_factory):
     return root
 
 
-def make_cfg(root, logdir, maxepoch) -> TrainConfig:
+def make_cfg(root, logdir, maxepoch, **kw) -> TrainConfig:
     return TrainConfig(
         datapath=str(root), trainlist="dl_train.csv", vallist="dl_val.csv",
         logdir=str(root / logdir), logdirhr=str(root / "no_sr_ckpt"),
         datastats=str(root), preweight=str(root / "bh_stats.txt"),
         s1dir="s1c", s2dir="s2c", bhdir="bhc", maxepoch=maxepoch,
         batch_size=4, num_workers=2, encoder_name="efficientnet-test",
-        super_mid=8, sr_num_block=1, sr_num_feat=8, sr_num_grow=8, tile=32)
+        super_mid=8, sr_num_block=1, sr_num_feat=8, sr_num_grow=8, tile=32,
+        **kw)
 
 
 def _state(state):
@@ -73,9 +74,11 @@ def _state(state):
 
 @pytest.fixture(scope="module")
 def runs(data):
-    whole = _state(main(make_cfg(data, "whole", 2), device="cpu"))
-    first = _state(main(make_cfg(data, "resumed", 1), device="cpu"))
-    resumed = _state(main(make_cfg(data, "resumed", 2), device="cpu"))
+    # the optimizer state is saved, so the resumed run continues exactly
+    exact = dict(save_opt_state=True)
+    whole = _state(main(make_cfg(data, "whole", 2, **exact), device="cpu"))
+    first = _state(main(make_cfg(data, "resumed", 1, **exact), device="cpu"))
+    resumed = _state(main(make_cfg(data, "resumed", 2, **exact), device="cpu"))
     return whole, first, resumed
 
 
@@ -176,7 +179,7 @@ def test_main_runs_fsdp_on_two_ranks(data, tmp_path):
     from srbh_tpu_torch.train.steps import make_predict_step
     from test_torch_parallel_train import rank_fsdp
 
-    main(make_cfg(data, "one_for_fsdp", 1), device="cpu")
+    main(make_cfg(data, "one_for_fsdp", 1, save_opt_state=True), device="cpu")
     single = os.path.join(data, "one_for_fsdp", "checkpoint")
     outs, image, shards, back, step = run_ranks(
         rank_fsdp, 2, str(data), "fsdp", single,
