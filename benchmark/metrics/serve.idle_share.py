@@ -1,0 +1,9 @@
+"""The device's idle share of the profiled stretch of serving requests, %:
+1 - the union of device operations' intervals over the stretch's length."""
+
+
+def read(record):
+    tr = record.get("trace")
+    if not tr or not tr["window_s"]:
+        return None
+    return 100.0 * (1.0 - tr["busy_s"] / tr["window_s"])
