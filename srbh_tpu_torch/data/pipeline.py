@@ -27,12 +27,14 @@ without a word where a sample's ``__getitem__`` raises ``StopIteration``.
 from __future__ import annotations
 
 import collections
+import itertools
 from typing import Dict, Iterator, Sequence
 
 import numpy as np
 import torch
 
 from srbh_tpu_torch import resolve_device
+from srbh_tpu_torch.utils import profiler
 
 
 class _EpochOrder(torch.utils.data.Sampler):
@@ -83,24 +85,35 @@ class DataLoader:
         return len(self._loader)
 
     def __iter__(self) -> Iterator[Dict]:
-        self._order.epoch = self.epoch
-        if hasattr(self.dataset, "set_epoch"):
-            self.dataset.set_epoch(self.epoch)
-        self.epoch += 1
-        n = 0
-        ahead = collections.deque()  # batches issued, not yet handed out
-        for batch in self._loader:
-            if self.device is not None:
-                batch = {k: v if k in self.host_keys else
-                         v.to(self.device, non_blocking=True)
-                         for k, v in batch.items()}
-            ahead.append(batch)
-            if len(ahead) > self.prefetch:
-                n += 1
-                yield ahead.popleft()
+        # the span ``loader.start``: the worker processes' start and the
+        # first ``prefetch + 1`` batches, up to (never across) the first yield
+        with profiler.span("loader.start"):
+            self._order.epoch = self.epoch
+            if hasattr(self.dataset, "set_epoch"):
+                self.dataset.set_epoch(self.epoch)
+            self.epoch += 1
+            batches = iter(self._loader)
+            # batches issued, not yet handed out
+            ahead = collections.deque(self._put(b) for b in itertools.islice(
+                batches, self.prefetch + 1))
+        n, more = 0, len(ahead) > self.prefetch
         while ahead:
             n += 1
             yield ahead.popleft()
+            if more:  # the next batch, if the epoch has one
+                batch = next(batches, None)
+                more = batch is not None
+                if more:
+                    ahead.append(self._put(batch))
         if n != len(self):
             raise RuntimeError(f"epoch {self.epoch - 1} ended after {n} of "
                                f"{len(self)} batches")
+
+    def _put(self, batch: Dict) -> Dict:
+        """``batch`` with its tensors issued to the device (``device_put``),
+        but for the host keys."""
+        if self.device is None:
+            return batch
+        return {k: v if k in self.host_keys else
+                v.to(self.device, non_blocking=True)
+                for k, v in batch.items()}

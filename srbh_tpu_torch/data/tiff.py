@@ -27,7 +27,8 @@ is reached, later chunks are decoded on every read), as
 ``srbh_tpu/data/tiff.py`` does: the city predictor's 64-px windows at a
 56-px stride touch each strip several times, and the cache decodes it once
 per process. :meth:`TiffReader.close` releases the map and the cache; it
-may be called twice.
+may be called twice. :func:`write_tiff`'s strip loop is the span
+``tiff.encode`` (``utils/profiler.py``).
 """
 from __future__ import annotations
 
@@ -42,6 +43,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from srbh_tpu_torch import native
+from srbh_tpu_torch.utils import profiler
 
 # TIFF tag ids
 T_WIDTH, T_LENGTH, T_BITS, T_COMPRESSION, T_PHOTOMETRIC = 256, 257, 258, 259, 262
@@ -414,12 +416,14 @@ def write_tiff(path: str, array: np.ndarray,
             "<" + _TYPE_FMT[typ] * len(values), *values)))
 
     strips, counts, comp_id = [], [], 1
-    for y0 in range(0, h, rows_per_strip):
-        chunk = np.ascontiguousarray(array[y0: y0 + rows_per_strip]).astype(
-            dt.newbyteorder("<")).tobytes()
-        comp, comp_id = _compress(chunk, compress)
-        strips.append(comp)
-        counts.append(len(comp))
+    with profiler.span("tiff.encode"):
+        for y0 in range(0, h, rows_per_strip):
+            chunk = np.ascontiguousarray(
+                array[y0: y0 + rows_per_strip]).astype(
+                    dt.newbyteorder("<")).tobytes()
+            comp, comp_id = _compress(chunk, compress)
+            strips.append(comp)
+            counts.append(len(comp))
 
     add(T_WIDTH, 4, w)
     add(T_LENGTH, 4, h)

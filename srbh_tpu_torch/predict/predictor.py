@@ -21,6 +21,13 @@ model ranks (``parallel/spatial.py``; the height model then runs on the
 gathered features); either returns the whole batch's outputs on every
 rank. ``predict/device_stitcher.py:stitch_tiles_sharded`` is its
 stitcher.
+
+Spans (``utils/profiler.py``): ``predict.city`` around each city mapped,
+over the loader's ``loader.start``, each batch's ``predict.step`` (with
+``predict.sr_features`` and ``predict.height_model``, timed on the card's
+stream too) and ``predict.copy_out`` (host stitching), then
+``predict.finalize`` and one ``predict.write`` a GeoTIFF. A step called
+alone is a root ``predict.step``.
 """
 from __future__ import annotations
 
@@ -44,6 +51,7 @@ from srbh_tpu_torch.parallel.spatial import (
 from srbh_tpu_torch.predict.device_stitcher import DeviceMosaicAccumulator
 from srbh_tpu_torch.predict.stitcher import MosaicAccumulator
 from srbh_tpu_torch.predict.writers import array2raster, array2raster_rio
+from srbh_tpu_torch.utils import profiler
 
 # the device-canvas budget off the card (CPU tensors): the JAX package's
 CPU_CANVAS_BUDGET = 6 * 2**30
@@ -63,8 +71,11 @@ def serving_outputs(model, sr_model, x, rgb_idx=(0, 1, 2),
     JAX package's ``dtype`` keeps its params float32); the post-processing
     is float32."""
     with compute_type(x.device, dtype):
-        fea = sr_model(x[:, list(rgb_idx)], features_only=True)
-        outs = model(x, fea)
+        rgb = x[:, list(rgb_idx)]
+        with profiler.span("predict.sr_features", device=True):
+            fea = sr_model(rgb, features_only=True)
+        with profiler.span("predict.height_model", device=True):
+            outs = model(x, fea)
     return postprocess(outs[0], outs[1])
 
 
@@ -108,9 +119,12 @@ def make_city_step(model, sr_model, rgb_idx=(0, 1, 2), dtype=torch.bfloat16,
         raise ValueError(f"partition {partition!r}: 'data' or 'spatial'")
     if mesh is None:
         def step(image):
-            x = torch.as_tensor(image, device=dev).permute(0, 3, 1, 2).float()
-            with torch.inference_mode():
-                return serving_outputs(model, sr_model, x, rgb_idx, dtype)[2:]
+            with profiler.span("predict.step"):
+                x = torch.as_tensor(image, device=dev)
+                x = x.permute(0, 3, 1, 2).float()
+                with torch.inference_mode():
+                    return serving_outputs(model, sr_model, x, rgb_idx,
+                                           dtype)[2:]
 
         return step
     data = mesh.get_group(pmesh.DATA_AXIS)
@@ -118,21 +132,23 @@ def make_city_step(model, sr_model, rgb_idx=(0, 1, 2), dtype=torch.bfloat16,
     banded = spatial_parallel(sr_model, rows) if partition == "spatial" else None
 
     def mesh_step(image):
-        x = torch.as_tensor(image, device=dev).permute(0, 3, 1, 2).float()
-        if partition == "spatial" and x.shape[2] % world(rows):
-            raise ValueError(f"{x.shape[2]} rows do not divide over "
-                             f"{world(rows)} model ranks")
-        x = pmesh.shard_batch(x, data)
-        with torch.inference_mode():
-            if banded is None:
-                h, b = serving_outputs(model, sr_model, x, rgb_idx, dtype)[2:]
-            else:
-                with compute_type(dev, dtype):
-                    band = banded(split_rows(x[:, list(rgb_idx)], rows),
-                                  features_only=True)
-                    outs = model(x, gather_rows(band, rows))
-                h, b = postprocess(outs[0], outs[1])[2:]
-        return pmesh.gather_batch(h, data), pmesh.gather_batch(b, data)
+        with profiler.span("predict.step"):
+            x = torch.as_tensor(image, device=dev).permute(0, 3, 1, 2).float()
+            if partition == "spatial" and x.shape[2] % world(rows):
+                raise ValueError(f"{x.shape[2]} rows do not divide over "
+                                 f"{world(rows)} model ranks")
+            x = pmesh.shard_batch(x, data)
+            with torch.inference_mode():
+                if banded is None:
+                    h, b = serving_outputs(model, sr_model, x, rgb_idx,
+                                           dtype)[2:]
+                else:
+                    with compute_type(dev, dtype):
+                        band = banded(split_rows(x[:, list(rgb_idx)], rows),
+                                      features_only=True)
+                        outs = model(x, gather_rows(band, rows))
+                    h, b = postprocess(outs[0], outs[1])[2:]
+            return pmesh.gather_batch(h, data), pmesh.gather_batch(b, data)
 
     return mesh_step
 
@@ -218,19 +234,23 @@ def predict_city(
         if stitch == "device":
             acc.add_batch(h, b, batch["pos"])
         else:
-            acc.add_batch(h.cpu().numpy(), b.cpu().numpy(),
-                          batch["pos"].numpy())
+            with profiler.span("predict.copy_out"):
+                h, b = h.cpu().numpy(), b.cpu().numpy()
+            acc.add_batch(h, b, batch["pos"].numpy())
 
-    height, build_cls, _ = acc.finalize()
+    with profiler.span("predict.finalize"):
+        height, build_cls, _ = acc.finalize()
     nres = dataset.geotrans[1] / upscale
     os.makedirs(respath, exist_ok=True)
     # atomic artifact commits: the resume check above keys on existence, so
     # a kill mid-write must never leave a truncated raster at the final
     # path (it would be skipped — i.e. shipped — on every later resume)
-    array2raster_rio(build_tif + ".tmp", build_cls, dataset.s2path,
-                     nresolution=nres, iscmap=True)
-    array2raster(height_tif + ".tmp", height, dataset.s2path,
-                 nresolution=nres, compress="DEFLATE")
+    with profiler.span("predict.write"):
+        array2raster_rio(build_tif + ".tmp", build_cls, dataset.s2path,
+                         nresolution=nres, iscmap=True)
+    with profiler.span("predict.write"):
+        array2raster(height_tif + ".tmp", height, dataset.s2path,
+                     nresolution=nres, compress="DEFLATE")
     os.replace(build_tif + ".tmp", build_tif)
     os.replace(height_tif + ".tmp", height_tif)
     return build_tif, height_tif
@@ -263,11 +283,13 @@ def predict_cities(
         if os.path.exists(build_tif) and os.path.exists(height_tif):
             results.append((build_tif, height_tif))
             continue
-        ds = GridImageDataset(wholeimgpath, cityname, datastats,
-                              s1dir=s1dir, s2dir=s2dir,
-                              gridvalid=gridvalid, nchans=nchans)
-        results.append(predict_city(ds, step, respath, cityname, chans_build,
-                                    batch_size, stitch=stitch, device=dev))
+        with profiler.span("predict.city"):
+            ds = GridImageDataset(wholeimgpath, cityname, datastats,
+                                  s1dir=s1dir, s2dir=s2dir,
+                                  gridvalid=gridvalid, nchans=nchans)
+            results.append(predict_city(ds, step, respath, cityname,
+                                        chans_build, batch_size,
+                                        stitch=stitch, device=dev))
     return results
 
 

@@ -38,6 +38,11 @@ twice before one backward. Every loss is a mean over equal local batches,
 so the averages are the global batch's gradients; the spectral norms'
 ``u`` read only the weights, and the EMA only G, so both stay equal on
 every rank. The metrics are the global batch's.
+
+A step is the span ``gan.step`` (``utils/profiler.py``), over
+``gan.g_pass`` (USM through G's backward and gradient average),
+``gan.g_adam``, ``gan.d_pass``, ``gan.d_adam`` and ``gan.ema``, each timed
+on the card's stream too.
 """
 from __future__ import annotations
 
@@ -55,6 +60,7 @@ from srbh_tpu_torch.models.rrdbnet import RRDBNet
 from srbh_tpu_torch.models.vgg import VGG19Features
 from srbh_tpu_torch.ops.usm import usm_sharp
 from srbh_tpu_torch.parallel.data import average_gradients, mean_over
+from srbh_tpu_torch.utils import profiler
 
 
 def multistep_lr(base_lr: float, milestones=(400000,), gamma: float = 0.5,
@@ -222,52 +228,57 @@ class RealESRGANTrainer:
             dev = state.device
             net_g, net_d = state.net_g.train(), state.net_d
             lq, gt = _nchw(lq, dev), _nchw(gt, dev)
-            with torch.no_grad():
-                gt_usm = usm_sharp(gt) if usm_any else gt
-            l1_gt = gt_usm if self.l1_gt_usm else gt
-            percep_gt = gt_usm if self.percep_gt_usm else gt
-            gan_gt = gt_usm if self.gan_gt_usm else gt
             lr = self.schedule(state.step)
 
             # the generator, D frozen and applied without storing its norms
-            net_d.requires_grad_(False)
-            with self._compute(dev):
-                output = net_g(lq)
-                fake_g = net_d(output, train=False)
-                if vgg is not None:
-                    fx = vgg(output)
-                    with torch.no_grad():
-                        fgt = vgg(percep_gt)
-            out32 = output.float()
-            l_pix = l1_loss(out32, l1_gt)
-            l_percep = (perceptual_loss([f.float() for f in fx],
-                                        [f.float() for f in fgt])
-                        if vgg is not None else torch.zeros((), device=dev))
-            l_gan = gan_loss(fake_g.float(), True, "vanilla", is_disc=False,
-                             loss_weight=gan_w)
-            g_total = l_pix + l_percep + l_gan
-            state.opt_g.zero_grad(set_to_none=True)
-            g_total.backward()
-            average_gradients(net_g.parameters(), group)
-            for pg in state.opt_g.param_groups:
-                pg["lr"] = lr
-            state.opt_g.step()
+            with profiler.span("gan.g_pass", device=True):
+                with torch.no_grad():
+                    gt_usm = usm_sharp(gt) if usm_any else gt
+                l1_gt = gt_usm if self.l1_gt_usm else gt
+                percep_gt = gt_usm if self.percep_gt_usm else gt
+                gan_gt = gt_usm if self.gan_gt_usm else gt
+                net_d.requires_grad_(False)
+                with self._compute(dev):
+                    output = net_g(lq)
+                    fake_g = net_d(output, train=False)
+                    if vgg is not None:
+                        fx = vgg(output)
+                        with torch.no_grad():
+                            fgt = vgg(percep_gt)
+                out32 = output.float()
+                l_pix = l1_loss(out32, l1_gt)
+                l_percep = (perceptual_loss([f.float() for f in fx],
+                                            [f.float() for f in fgt])
+                            if vgg is not None
+                            else torch.zeros((), device=dev))
+                l_gan = gan_loss(fake_g.float(), True, "vanilla",
+                                 is_disc=False, loss_weight=gan_w)
+                g_total = l_pix + l_percep + l_gan
+                state.opt_g.zero_grad(set_to_none=True)
+                g_total.backward()
+                average_gradients(net_g.parameters(), group)
+            with profiler.span("gan.g_adam", device=True):
+                for pg in state.opt_g.param_groups:
+                    pg["lr"] = lr
+                state.opt_g.step()
 
             # the discriminator, two forwards that each store their norms
-            net_d.requires_grad_(True)
-            with self._compute(dev):
-                real_pred = net_d(gan_gt, train=True).float()
-                fake_pred = net_d(output.detach(), train=True).float()
-            l_real = gan_loss(real_pred, True, "vanilla", is_disc=True)
-            l_fake = gan_loss(fake_pred, False, "vanilla", is_disc=True)
-            state.opt_d.zero_grad(set_to_none=True)
-            (l_real + l_fake).backward()
-            average_gradients(net_d.parameters(), group)
-            for pg in state.opt_d.param_groups:
-                pg["lr"] = lr
-            state.opt_d.step()
+            with profiler.span("gan.d_pass", device=True):
+                net_d.requires_grad_(True)
+                with self._compute(dev):
+                    real_pred = net_d(gan_gt, train=True).float()
+                    fake_pred = net_d(output.detach(), train=True).float()
+                l_real = gan_loss(real_pred, True, "vanilla", is_disc=True)
+                l_fake = gan_loss(fake_pred, False, "vanilla", is_disc=True)
+                state.opt_d.zero_grad(set_to_none=True)
+                (l_real + l_fake).backward()
+                average_gradients(net_d.parameters(), group)
+            with profiler.span("gan.d_adam", device=True):
+                for pg in state.opt_d.param_groups:
+                    pg["lr"] = lr
+                state.opt_d.step()
 
-            with torch.no_grad():
+            with profiler.span("gan.ema", device=True), torch.no_grad():
                 ema = list(state.g_ema.parameters())
                 torch._foreach_mul_(ema, decay)
                 torch._foreach_add_(ema, list(net_g.parameters()),
@@ -280,7 +291,7 @@ class RealESRGANTrainer:
                 ("out_d_fake", fake_pred.mean()))}
 
         def step(state: GANTrainState, lq, gt):
-            with self._autotuned(state.device):
+            with profiler.span("gan.step"), self._autotuned(state.device):
                 return update(state, lq, gt)
 
         return step
