@@ -27,8 +27,10 @@ is reached, later chunks are decoded on every read), as
 ``srbh_tpu/data/tiff.py`` does: the city predictor's 64-px windows at a
 56-px stride touch each strip several times, and the cache decodes it once
 per process. :meth:`TiffReader.close` releases the map and the cache; it
-may be called twice. :func:`write_tiff`'s strip loop is the span
-``tiff.encode`` (``utils/profiler.py``).
+may be called twice. :func:`write_tiff`'s strip encode is the span
+``tiff.encode`` (``utils/profiler.py``); it runs on a thread pool when
+several strips are compressed (:func:`_encode_strips`), and opens no span
+in the pool's threads.
 """
 from __future__ import annotations
 
@@ -37,6 +39,7 @@ import os
 import re
 import struct
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -378,14 +381,41 @@ def read_tiff(path: str, window=None) -> np.ndarray:
     return TiffReader(path).read(window)
 
 
+_UNCOMPRESSED = (None, "none", "NONE")
+
+
 def _compress(data: bytes, method: Optional[str]) -> Tuple[bytes, int]:
-    if method in (None, "none", "NONE"):
+    if method in _UNCOMPRESSED:
         return data, 1
     if method.upper() == "DEFLATE":
         return zlib.compress(data, 6), 8
     if method.upper() == "PACKBITS":
         return native.packbits_encode(data), 32773
     raise ValueError(f"unsupported write compression {method!r}")
+
+
+def _encode_strips(array: np.ndarray, rows_per_strip: int,
+                   compress: Optional[str]) -> List[Tuple[bytes, int]]:
+    """Each strip's ``(stream, compression id)``, in strip order.
+
+    DEFLATE (``zlib.compress``) and PackBits (the C++ codec through ctypes)
+    release the GIL while they encode, and strips are independent, so
+    several compressed strips are encoded on a thread pool of
+    ``min(strips, usable cores)`` threads: the same bytes as the serial
+    loop. The pool lives for this call alone and is joined before it
+    returns, so no thread is alive when a loader later forks its workers.
+    One strip, one usable core or no compression (a copy) stays serial."""
+    def encode(y0):
+        chunk = np.ascontiguousarray(array[y0: y0 + rows_per_strip]).astype(
+            array.dtype.newbyteorder("<")).tobytes()
+        return _compress(chunk, compress)
+
+    starts = range(0, array.shape[0], rows_per_strip)
+    threads = min(len(starts), len(os.sched_getaffinity(0)))
+    if threads < 2 or compress in _UNCOMPRESSED:
+        return list(map(encode, starts))
+    with ThreadPoolExecutor(threads, thread_name_prefix="tiff-encode") as pool:
+        return list(pool.map(encode, starts))
 
 
 def write_tiff(path: str, array: np.ndarray,
@@ -415,15 +445,11 @@ def write_tiff(path: str, array: np.ndarray,
         entries.append((tag, typ, len(values), struct.pack(
             "<" + _TYPE_FMT[typ] * len(values), *values)))
 
-    strips, counts, comp_id = [], [], 1
     with profiler.span("tiff.encode"):
-        for y0 in range(0, h, rows_per_strip):
-            chunk = np.ascontiguousarray(
-                array[y0: y0 + rows_per_strip]).astype(
-                    dt.newbyteorder("<")).tobytes()
-            comp, comp_id = _compress(chunk, compress)
-            strips.append(comp)
-            counts.append(len(comp))
+        encoded = _encode_strips(array, rows_per_strip, compress)
+    strips = [comp for comp, _ in encoded]
+    counts = [len(comp) for comp in strips]
+    comp_id = encoded[-1][1] if encoded else 1
 
     add(T_WIDTH, 4, w)
     add(T_LENGTH, 4, h)

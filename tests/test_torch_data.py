@@ -4,7 +4,9 @@
 * ``read_tiff`` reads files written by the JAX package's ``write_tiff``
   (none, PackBits, Deflate) and by libtiff (through cv2) and PIL (LZW too)
   bit-equal to the JAX reader; the port's writer emits the same bytes as
-  the JAX writer, and round-trips.
+  the JAX writer, and round-trips. Several compressed strips encode on a
+  thread pool, joined before the write returns; one strip or none
+  compressed stay on the caller's thread.
 * ``augment_pair_lowres``: flips and grid shuffles equal the JAX package's
   (cv2) exactly; the float32 rotation is held to the tolerances of
   ``tests/test_device_aug.py`` against cv2 (image max 0.03 / mean 0.004 of
@@ -21,6 +23,7 @@
 * The loader's batches come in the JAX ``DataLoader``'s order.
 """
 import os
+import threading
 
 import cv2
 import numpy as np
@@ -75,6 +78,13 @@ RASTERS = {
     "f32x2": lambda r: r.uniform(-25, 5, (20, 17, 2)).astype(np.float32),
     "u8": lambda r: np.repeat(r.integers(0, 100, (300, 64)), 2, axis=0
                               ).astype(np.uint8),
+    # many strips at rows_per_strip=64 (12 whole and a short 13th of 23
+    # rows): the writer encodes them on its thread pool
+    "u16_strips": lambda r: np.repeat(np.repeat(
+        r.integers(0, 3000, (198, 10)), 4, axis=0), 4, axis=1
+    )[:791].astype(np.uint16),
+    "u8x3_strips": lambda r: np.repeat(r.integers(0, 7, (791, 8, 3)), 4,
+                                       axis=1).astype(np.uint8),
 }
 
 
@@ -97,6 +107,60 @@ def test_tiff_reads_and_writes_like_jax(tmp_path, compress, kind):
                                   jtiff.read_tiff(theirs, window))
     assert ttiff.TiffReader(theirs).geotransform == \
         jtiff.TiffReader(theirs).geotransform
+
+
+def _encode_threads(monkeypatch, barrier=None):
+    """The threads ``_compress`` runs on; with ``barrier``, its first two
+    calls wait there, so they must come from two threads at once."""
+    seen, calls, lock, real = set(), [], threading.Lock(), ttiff._compress
+
+    def spy(data, method):
+        with lock:
+            seen.add(threading.get_ident())
+            calls.append(None)
+            first_two = len(calls) <= 2
+        if barrier is not None and first_two:
+            barrier.wait()
+        return real(data, method)
+
+    monkeypatch.setattr(ttiff, "_compress", spy)
+    return seen
+
+
+@pytest.mark.parametrize("compress", ["DEFLATE", "PACKBITS"])
+def test_tiff_strips_encode_on_a_pool_and_leave_no_thread(
+        tmp_path, monkeypatch, compress):
+    cores = len(os.sched_getaffinity(0))
+    if cores < 2:
+        pytest.skip("one usable core: the writer encodes strips serially")
+    arr = RASTERS["u16_strips"](np.random.default_rng(0))
+    serial, pooled = str(tmp_path / "serial.tif"), str(tmp_path / "pool.tif")
+    before = set(threading.enumerate())
+    seen = _encode_threads(monkeypatch, threading.Barrier(2, timeout=30))
+    ttiff.write_tiff(pooled, arr, compress=compress, rows_per_strip=64)
+    assert 2 <= len(seen) <= min(13, cores)
+    assert threading.get_ident() not in seen
+    assert set(threading.enumerate()) == before
+    monkeypatch.setattr(os, "sched_getaffinity", lambda pid: {0})
+    seen = _encode_threads(monkeypatch)
+    ttiff.write_tiff(serial, arr, compress=compress, rows_per_strip=64)
+    assert seen == {threading.get_ident()}
+    with open(serial, "rb") as a, open(pooled, "rb") as b:
+        assert a.read() == b.read()
+
+
+@pytest.mark.parametrize("rows, compress", [(791, "DEFLATE"), (64, None)])
+def test_tiff_one_strip_or_uncompressed_encodes_on_the_caller(
+        tmp_path, monkeypatch, rows, compress):
+    arr = RASTERS["u16_strips"](np.random.default_rng(0))
+    before = set(threading.enumerate())
+    seen = _encode_threads(monkeypatch)
+    ttiff.write_tiff(str(tmp_path / "a.tif"), arr, compress=compress,
+                     rows_per_strip=rows)
+    assert seen == {threading.get_ident()}
+    assert set(threading.enumerate()) == before
+    np.testing.assert_array_equal(
+        ttiff.read_tiff(str(tmp_path / "a.tif"))[..., 0], arr)
 
 
 @pytest.mark.parametrize("comp", [1, 5, 8, 32773])  # none/LZW/deflate/packbits
