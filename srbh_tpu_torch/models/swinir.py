@@ -26,6 +26,14 @@ State-dict names are the reference's (``layers.{l}.residual_group.blocks.
 reference's derived buffers ``relative_position_index`` and ``attn_mask`` are
 recomputed here and are not part of the state dict.
 
+Spans (``utils/profiler.py``): ``swinir.body`` around ``forward_features``
+and ``conv_after_body`` and ``swinir.upsample`` around the head (the
+real-world presets' ``nearest+conv`` upsampler), each with ``device=True``,
+and ``swinir.rstb`` around each RSTB (inside the body), host only: nine CUDA
+event pairs a forward would cost more under a profiler than they tell; the
+harness's ``apply`` is the root ``swinir.apply``. They cost one check each
+while nothing records.
+
 Drop-path (stochastic depth, ``srbh_tpu/models/swinir.py:173-184``):
 ``drop_path_rate`` (0.1, the reference's default) is spread over the blocks
 by ``np.linspace(0, rate, sum(depths))``, and in training mode each block
@@ -54,6 +62,7 @@ from srbh_tpu_torch.ops.window_attention import (
     window_attention,
     window_attention_reference,
 )
+from srbh_tpu_torch.utils import profiler
 
 RGB_MEAN = (0.4488, 0.4371, 0.4040)
 
@@ -256,8 +265,9 @@ class RSTB(nn.Module):
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
         """x: (B, H, W, C)."""
-        y = self.residual_group(x, generator).permute(0, 3, 1, 2)
-        return self.conv(y).permute(0, 2, 3, 1) + x
+        with profiler.span("swinir.rstb"):
+            y = self.residual_group(x, generator).permute(0, 3, 1, 2)
+            return self.conv(y).permute(0, 2, 3, 1) + x
 
 
 class PatchEmbed(nn.Module):
@@ -340,19 +350,26 @@ class SwinIR(nn.Module):
         x = (x - mean) * self.img_range
 
         feat = self.conv_first(x)
-        feat = self.conv_after_body(self.forward_features(feat, generator)) + feat
+        with profiler.span("swinir.body", device=True):
+            feat = self.conv_after_body(
+                self.forward_features(feat, generator)) + feat
+        with profiler.span("swinir.upsample", device=True):
+            out = self._head(x, feat)
+        out = out / self.img_range + mean
+        return out[..., : h_in * self.upscale, : w_in * self.upscale]
+
+    def _head(self, x, feat):
+        """The image from the body's features (``x``: the normalised input,
+        for the global residual of the heads that do not upscale)."""
         lrelu = lambda t: F.leaky_relu(t, 0.2)
         if self.upsampler == "pixelshuffle":
-            out = self.conv_last(self.upsample(self.conv_before_upsample(feat)))
-        elif self.upsampler == "pixelshuffledirect":
-            out = pixel_shuffle(self.upsample(feat), self.upscale)
-        elif self.upsampler == "nearest+conv":
+            return self.conv_last(self.upsample(self.conv_before_upsample(feat)))
+        if self.upsampler == "pixelshuffledirect":
+            return pixel_shuffle(self.upsample(feat), self.upscale)
+        if self.upsampler == "nearest+conv":
             feat = self.conv_before_upsample(feat)
             feat = lrelu(self.conv_up1(upsample_nearest(feat, 2)))
             if self.upscale == 4:
                 feat = lrelu(self.conv_up2(upsample_nearest(feat, 2)))
-            out = self.conv_last(lrelu(self.conv_hr(feat)))
-        else:
-            out = x + self.conv_last(feat)
-        out = out / self.img_range + mean
-        return out[..., : h_in * self.upscale, : w_in * self.upscale]
+            return self.conv_last(lrelu(self.conv_hr(feat)))
+        return x + self.conv_last(feat)

@@ -35,6 +35,7 @@ from srbh_tpu_torch.metrics.image import (
 )
 from srbh_tpu_torch.models.layers import init_weights
 from srbh_tpu_torch.models.swinir import SwinIR
+from srbh_tpu_torch.utils import profiler
 
 TASKS = ("classical_sr", "lightweight_sr", "real_sr", "gray_dn", "color_dn",
          "jpeg_car", "color_jpeg_car")
@@ -80,11 +81,13 @@ def define_model(task: str, scale: int = 1, large_model: bool = False,
 
 def apply(model: SwinIR, x) -> torch.Tensor:
     """Run ``model`` on an NHWC image batch (array or tensor) on the model's
-    device under ``torch.inference_mode()``; returns NHWC."""
+    device under ``torch.inference_mode()``; returns NHWC. The call is the
+    span ``swinir.apply``."""
     dev = next(model.parameters()).device
-    x = torch.as_tensor(x, device=dev).permute(0, 3, 1, 2)
-    with torch.inference_mode():
-        return model(x).permute(0, 2, 3, 1)
+    with profiler.span("swinir.apply"):
+        x = torch.as_tensor(x, device=dev).permute(0, 3, 1, 2)
+        with torch.inference_mode():
+            return model(x).permute(0, 2, 3, 1)
 
 
 def setup(task: str, scale: int = 1) -> Tuple[int, int]:

@@ -15,10 +15,11 @@ step and the GAN step each open a :func:`span` at their layers
 ``predict.sr_features``, ``predict.height_model``, ``predict.copy_out``,
 ``predict.finalize``, ``predict.write``, ``tiff.encode``, ``gan.step``,
 ``gan.g_pass``, ``gan.g_adam``, ``gan.d_pass``, ``gan.d_adam``,
-``gan.ema``). They record only while a ``torch.profiler`` session records
-or a :func:`recording` block is open; otherwise :func:`span` returns one
-shared object that does nothing, after a single check: no clock reading,
-no allocation, no CUDA event.
+``gan.ema``), and so does SwinIR (``swinir.apply``, ``swinir.body``,
+``swinir.rstb``, ``swinir.upsample``). They record only while a
+``torch.profiler`` session records or a :func:`recording` block is open;
+otherwise :func:`span` returns one shared object that does nothing, after a
+single check: no clock reading, no allocation, no CUDA event.
 
 * ``with profiler.trace(logdir): ...`` puts each span in the trace as a
   range ``srbh.<name>`` on the profiler's own clock, beside the kernels
