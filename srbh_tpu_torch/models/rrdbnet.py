@@ -1,4 +1,8 @@
-"""RRDBNet, the (Real-)ESRGAN generator and frozen feature extractor (NCHW).
+"""RRDBNet, the (Real-)ESRGAN generator and frozen feature extractor.
+
+(N, C, H, W) tensors, in the input's memory format: the serving step runs
+it channels-last (``predict/predictor.py:make_city_step``), the GAN's
+trainer contiguous.
 
 Counterpart of ``srbh_tpu/models/rrdbnet.py``: 23 residual-in-residual
 dense blocks of 5 growth convs

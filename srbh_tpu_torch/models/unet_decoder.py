@@ -1,4 +1,8 @@
-"""U-Net decoder matching segmentation_models_pytorch's UnetDecoder (NCHW).
+"""U-Net decoder matching segmentation_models_pytorch's UnetDecoder.
+
+(N, C, H, W) tensors, in the input's memory format: the upsample and the
+concatenation keep it, so a channels-last encoder (the serving step's)
+gives a channels-last decoder.
 
 Counterpart of ``srbh_tpu/models/unet_decoder.py``: 5 blocks, no center
 block; each block nearest-upsamples x2, concatenates the encoder skip (the

@@ -1,4 +1,4 @@
-"""Nearest resizes with torch's index rule, NCHW.
+"""Nearest resizes with torch's index rule, on (N, C, H, W) tensors.
 
 Counterpart of ``srbh_tpu/ops/resize.py``. Output index ``o`` of a size
 ``out`` axis reads input index ``floor(o * in / out)`` in exact integers,
@@ -6,10 +6,16 @@ which is torch's and cv2's nearest rule at integer factors
 (BH_loader.py:354-369; SR/rrdbnet_arch.py:219-220). The learned metrics
 resize with torch's float32 scale instead (``metrics/learned.py:
 _nearest_torch``), which differs at some non-integer ratios.
+
+:func:`upsample_nearest` keeps its input's memory format: a channels-last
+input gives a channels-last output (the serving step's layout,
+``predict/predictor.py:make_city_step``), a contiguous one a contiguous
+one.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def resize_nearest(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
@@ -21,8 +27,10 @@ def resize_nearest(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
 
 
 def upsample_nearest(x: torch.Tensor, scale: int) -> torch.Tensor:
-    """(N, C, H, W) -> (N, C, H*scale, W*scale): each pixel repeated."""
-    return x.repeat_interleave(scale, dim=-2).repeat_interleave(scale, dim=-1)
+    """(N, C, H, W) -> (N, C, H*scale, W*scale): each pixel repeated, in
+    ``x``'s memory format. At the scales used (2, 4) torch's nearest
+    kernel reads input index ``o // scale``: the values are the repeat's."""
+    return F.interpolate(x, scale_factor=scale, mode="nearest")
 
 
 def downsample_nearest(x: torch.Tensor, scale: int) -> torch.Tensor:

@@ -68,7 +68,9 @@ def _forward(run, group, mbs, keep):
             dist.send(y.detach().contiguous(), _peer(group, s + 1), group=group)
         else:
             outs.append(y.detach())
-    out = torch.stack(outs) if s == n - 1 else _buffer(mbs)
+    # the broadcast sends the storage as it lies: contiguous, as the
+    # receivers' buffers are (a channels-last stack is not)
+    out = torch.stack(outs).contiguous() if s == n - 1 else _buffer(mbs)
     dist.broadcast(out, _peer(group, n - 1), group=group)
     return out, pairs
 
@@ -100,7 +102,8 @@ class _Pipeline(torch.autograd.Function):
                 dist.send(x.grad.contiguous(), _peer(group, s - 1), group=group)
             else:
                 grads_in[m] = x.grad
-        g_mbs = torch.stack(grads_in) if s == 0 else _buffer(grad)
+        g_mbs = (torch.stack(grads_in).contiguous() if s == 0
+                 else _buffer(grad))
         dist.broadcast(g_mbs, _peer(group, 0), group=group)
         ctx.pairs = None
         return (None, None, g_mbs) + (None,) * (len(ctx.needs_input_grad) - 3)

@@ -59,9 +59,10 @@ CPU_CANVAS_BUDGET = 6 * 2**30
 
 def serving_outputs(model, sr_model, x, rgb_idx=(0, 1, 2),
                     dtype=torch.bfloat16):
-    """The flagship's serving forward on an NCHW float batch ``x`` (B, 8,
-    64, 64): the frozen SR features, the height model, then the predictor's
-    post-processing (predict/predictor.py:50-56). Returns float heights
+    """The flagship's serving forward on a float batch ``x`` (B, 8, 64, 64),
+    whose memory format the activations keep: the frozen SR features, the
+    height model, then the predictor's post-processing
+    (predict/predictor.py:50-56). Returns float heights
     ``clamp(h, 0)`` (B, 256, 256) and build softmax (B, 256, 256, C), and
     their quantised forms: uint16 decimetres ``round(h * 10)`` and uint8
     ``round(softmax * 255)``. ``torch.round`` rounds half to even, like
@@ -71,12 +72,19 @@ def serving_outputs(model, sr_model, x, rgb_idx=(0, 1, 2),
     JAX package's ``dtype`` keeps its params float32); the post-processing
     is float32."""
     with compute_type(x.device, dtype):
-        rgb = x[:, list(rgb_idx)]
+        rgb = _rgb_channels(x, rgb_idx)
         with profiler.span("predict.sr_features", device=True):
             fea = sr_model(rgb, features_only=True)
         with profiler.span("predict.height_model", device=True):
             outs = model(x, fea)
     return postprocess(outs[0], outs[1])
+
+
+def _rgb_channels(x, rgb_idx):
+    """``x[:, rgb_idx]`` in ``x``'s memory format (indexing would return a
+    contiguous tensor): ``torch.cat`` of channel slices keeps the layout that
+    the slices' strides share."""
+    return torch.cat([x[:, i:i + 1] for i in rgb_idx], 1)
 
 
 def compute_type(device, dtype):
@@ -106,6 +114,12 @@ def make_city_step(model, sr_model, rgb_idx=(0, 1, 2), dtype=torch.bfloat16,
     the step runs under ``torch.inference_mode()``. Outputs stay on the
     device.
 
+    The step runs channels-last: both models' conv weights are converted to
+    ``torch.channels_last`` here, in place, and the NHWC image's NCHW view
+    is channels-last, so every activation from the first conv to the heads
+    keeps that layout and cuDNN's NHWC kernels get their operands without a
+    transform a call.
+
     With ``mesh`` every rank passes the same whole batch and gets the whole
     batch's outputs: ``partition="data"`` runs each data rank's
     ``shard_batch`` rows; ``"spatial"`` also runs the RRDB trunk on bands of
@@ -113,8 +127,8 @@ def make_city_step(model, sr_model, rgb_idx=(0, 1, 2), dtype=torch.bfloat16,
     activations outgrow one card. The batch must divide over the data
     ranks, and the rows over the model ranks, or the step raises."""
     dev = resolve_device(device)
-    model = model.eval().to(dev)
-    sr_model = sr_model.eval().to(dev)
+    model = model.eval().to(dev, memory_format=torch.channels_last)
+    sr_model = sr_model.eval().to(dev, memory_format=torch.channels_last)
     if partition not in ("data", "spatial"):
         raise ValueError(f"partition {partition!r}: 'data' or 'spatial'")
     if mesh is None:
@@ -144,8 +158,8 @@ def make_city_step(model, sr_model, rgb_idx=(0, 1, 2), dtype=torch.bfloat16,
                                            dtype)[2:]
                 else:
                     with compute_type(dev, dtype):
-                        band = banded(split_rows(x[:, list(rgb_idx)], rows),
-                                      features_only=True)
+                        rgb = split_rows(_rgb_channels(x, rgb_idx), rows)
+                        band = banded(rgb, features_only=True)
                         outs = model(x, gather_rows(band, rows))
                     h, b = postprocess(outs[0], outs[1])[2:]
             return pmesh.gather_batch(h, data), pmesh.gather_batch(b, data)

@@ -42,15 +42,25 @@ def rand(*shape, seed=0):
     return np.random.default_rng(seed).normal(size=shape).astype(np.float32)
 
 
+def _layouts(x):
+    """``x`` channels-last and contiguous (NCHW), with the check each
+    layout's output must pass: the input's memory format kept."""
+    assert x.is_contiguous(memory_format=torch.channels_last)
+    return ((x, lambda t: t.is_contiguous(memory_format=torch.channels_last)),
+            (x.contiguous(), lambda t: t.is_contiguous()))
+
+
 @pytest.mark.parametrize("r", [2, 3, 4])
 def test_pixel_shuffle_matches_jax(r):
     x = rand(2, 5, 3, 4 * r * r)
     want = np.asarray(jshuffle.pixel_shuffle(jnp.asarray(x), r))
-    got = tshuffle.pixel_shuffle(nchw(x), r)
-    np.testing.assert_array_equal(nhwc(got), want)
-    # torch's own PixelShuffle has the same channel order
-    torch.testing.assert_close(got, torch.nn.functional.pixel_shuffle(nchw(x), r),
-                               rtol=0, atol=0)
+    for inp, kept in _layouts(nchw(x)):
+        got = tshuffle.pixel_shuffle(inp, r)
+        np.testing.assert_array_equal(nhwc(got), want)
+        assert kept(got)
+        # torch's own PixelShuffle has the same channel order
+        torch.testing.assert_close(
+            got, torch.nn.functional.pixel_shuffle(inp, r), rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("r", [2, 4])
@@ -69,12 +79,19 @@ def test_shuffle_rejects_bad_shapes():
         tshuffle.pixel_unshuffle(torch.zeros(1, 3, 5, 4), 2)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("scale", [2, 4])
-def test_upsample_nearest_matches_jax(scale):
-    x = rand(2, 3, 5, 4)
-    want = np.asarray(jresize.upsample_nearest(jnp.asarray(x), scale))
-    np.testing.assert_array_equal(nhwc(tresize.upsample_nearest(nchw(x), scale)),
-                                  want)
+def test_upsample_nearest_matches_jax(scale, dtype):
+    """Bit-equal to the JAX package's in float32 and bfloat16, from a
+    channels-last input (the serving step's layout) to a channels-last
+    output, and from a contiguous (NCHW) input to a contiguous output."""
+    x = nchw(rand(2, 3, 5, 4)).to(getattr(torch, dtype))
+    want = np.asarray(jresize.upsample_nearest(
+        jnp.asarray(nhwc(x.float()), getattr(jnp, dtype)), scale), np.float32)
+    for inp, kept in _layouts(x):
+        got = tresize.upsample_nearest(inp, scale)
+        assert got.dtype == x.dtype and kept(got)
+        np.testing.assert_array_equal(nhwc(got.float()), want)
 
 
 @pytest.mark.parametrize("momentum,eps", [(0.9, 1e-5), (0.99, 1e-3)])

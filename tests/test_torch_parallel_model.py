@@ -25,6 +25,8 @@ imports JAX only inside its fixtures, so the ranks start without it.
   host ``MosaicAccumulator``.
 * ``entry.dryrun_multichip(2, device="cpu")``.
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -141,6 +143,12 @@ def _rank_model(case_path):
                                             num_microbatches=4).numpy()
         out["pp2"] = rrdb_pipeline_features(deep, xd, square,
                                             num_microbatches=8).numpy()
+        # the serving step's layout: the stages' outputs are channels-last
+        cl = torch.channels_last
+        out["pp4_channels_last"] = rrdb_pipeline_features(
+            copy.deepcopy(deep).to(memory_format=cl),
+            xd.contiguous(memory_format=cl), wide,
+            num_microbatches=4).numpy()
         w = torch.from_numpy(case["w"])
         out["pp_affine"] = pipeline_apply(lambda p, h: h * p + 1.0, w,
                                           torch.from_numpy(case["mbs"]),
@@ -271,7 +279,7 @@ def test_trunk_sp_matches_jax(refs):
                                atol=TRUNK_TOL, rtol=0)
 
 
-@pytest.mark.parametrize("key", ["pp4", "pp2"])
+@pytest.mark.parametrize("key", ["pp4", "pp2", "pp4_channels_last"])
 def test_rrdb_pipeline_matches_jax(refs, key):
     case, jax_out, got = refs
     np.testing.assert_allclose(_nhwc(got[key]), jax_out["deep"],

@@ -10,6 +10,7 @@ mosaics are quantised: heights may differ by 1 LSB (a value on a rounding
 edge rounds either way) on at most 0.1 % of pixels, and classes are equal
 on at least 99.9 %. The geotransform, colormap and GeoKeys are equal.
 """
+import copy
 import os
 import types
 
@@ -30,7 +31,11 @@ from srbh_tpu_torch.data.grid import GridImageDataset
 from srbh_tpu_torch.data.tiff import TiffReader
 from srbh_tpu_torch.predict import __main__ as cli
 from srbh_tpu_torch.predict import predictor
-from srbh_tpu_torch.predict.predictor import make_city_step, predict_city
+from srbh_tpu_torch.predict.predictor import (
+    make_city_step,
+    predict_city,
+    serving_outputs,
+)
 from test_torch_port_rules import _one_torch_thread  # noqa: F401 (autouse)
 
 
@@ -130,6 +135,53 @@ def test_predict_city_matches_jax(city, models, tmp_path):
         assert (ia.colormap, ia.compression) == (ib.colormap, ib.compression)
     assert gb.info().colormap[6] == (127, 0, 0, 255)
     assert gh.info().compression == 8  # DEFLATE
+
+
+def _conv_inputs(*modules):
+    """Forward pre-hooks on every ``Conv2d`` of ``modules``: the list they
+    fill with each call's input, and the hooks' handles."""
+    seen, handles = [], []
+    for m in modules:
+        for conv in m.modules():
+            if isinstance(conv, torch.nn.Conv2d):
+                handles.append(conv.register_forward_pre_hook(
+                    lambda _mod, args: seen.append(args[0])))
+    return seen, handles
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_step_runs_channels_last(models, dtype):
+    """Inside ``make_city_step``'s step every conv of both models reads a
+    channels-last input, so cuDNN's NHWC kernels need no transform; the
+    quantised maps match ``serving_outputs`` run NCHW (contiguous weights
+    and input) on a deep copy of the same weights, within the file's LSB
+    rule."""
+    dtype = getattr(torch, dtype)
+    image = torch.rand((2, 64, 64, 8),
+                       generator=torch.Generator().manual_seed(3))
+    nchw = [copy.deepcopy(models[k]).to(memory_format=torch.contiguous_format)
+            for k in ("tm", "tsr")]
+    seen, handles = _conv_inputs(*nchw)
+    with torch.inference_mode():
+        want = serving_outputs(*nchw, image.permute(0, 3, 1, 2).contiguous(),
+                               dtype=dtype)[2:]
+    assert seen and all(t.is_contiguous() for t in seen)
+    for h in handles:
+        h.remove()
+    calls = len(seen)
+    step_models = [copy.deepcopy(m) for m in nchw]
+    seen, _ = _conv_inputs(*step_models)
+    got = make_city_step(*step_models, dtype=dtype, device="cpu")(image)
+    assert len(seen) == calls
+    assert sum(not t.is_contiguous(memory_format=torch.channels_last)
+               for t in seen) == 0
+    heights = [h.numpy().astype(np.int64) for h in (got[0], want[0])]
+    diff = np.abs(heights[0] - heights[1])
+    assert (heights[1] > 0).mean() > 0.5
+    assert diff.max() <= 1 and (diff > 0).mean() <= LSB_SHARE
+    builds = [b.numpy().astype(np.int64) for b in (got[1], want[1])]
+    bdiff = np.abs(builds[0] - builds[1])
+    assert bdiff.max() <= 1 and (bdiff > 0).mean() <= LSB_SHARE
 
 
 def _explode(_image):
