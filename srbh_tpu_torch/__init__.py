@@ -5,6 +5,8 @@ port imports nothing of it. Modules mirror its layout (``ops/``, ``models/``,
 ``predict/``, ``tools/``). Entry points run on the card unless the caller
 passes ``device="cpu"``.
 """
+import contextlib
+
 import torch
 
 
@@ -16,3 +18,12 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run on the CPU")
     return dev
+
+
+def compute_type(device, dtype):
+    """Every step's compute type: float32 as it is, else ``torch.autocast``
+    in ``dtype`` on ``device`` (parameters stay float32, as in the JAX
+    package)."""
+    if dtype == torch.float32:
+        return contextlib.nullcontext()
+    return torch.autocast(torch.device(device).type, dtype=dtype)

@@ -5,6 +5,8 @@ and encode, LZW decode, the batched mosaic blend) is built at first use with
 ``g++ -O3 -shared -fPIC`` into ``build/srbh_tpu_torch/`` beside the package
 and bound with ``ctypes``. ``data/tiff.py`` decodes and encodes through it
 and ``predict/stitcher.py:MosaicAccumulator.add_batch`` blends through it.
+:func:`build` and :func:`load` are the port's one path from a source to a
+loaded library; ``ops/window_attention.py`` takes it too.
 
 Unlike the JAX package's, nothing here falls back to Python: a failed build
 raises, a malformed stream raises, and a tile outside the canvas raises
@@ -21,7 +23,7 @@ import os
 import subprocess
 import threading
 from pathlib import Path
-from typing import Optional
+from typing import Callable
 
 import numpy as np
 
@@ -29,52 +31,75 @@ SOURCE = Path(__file__).resolve().with_name("tiffcodec.cpp")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "srbh_tpu_torch"
 
 _lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def build(source: Path, name: str, command: Callable[[Path], list],
+          log: bool = False) -> tuple[Path, str]:
+    """(path, compiler's output) of ``BUILD_DIR/lib<name>_<tag>.so``, ``tag``
+    a hash of ``source``, compiled by the arguments ``command(out)`` unless
+    already built. Each process compiles to its own temporary ``out`` and
+    moves it into place, so none loads a half-written file. ``log`` keeps
+    the output in a ``.log`` beside the library, which a built library then
+    needs. A failed compile raises ``RuntimeError`` naming the compiler."""
+    tag = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
+    lib = BUILD_DIR / f"lib{name}_{tag}.so"
+    log_file = lib.with_suffix(".log")
+    if lib.exists() and (not log or log_file.exists()):
+        return lib, log_file.read_text() if log else ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    cmd = command(tmp)
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    out = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"{Path(cmd[0]).name} failed ({proc.returncode}) "
+                           f"building {source}:\n{out}")
+    if log:
+        log_file.write_text(out)
+    os.replace(tmp, lib)
+    return lib, out
+
+
+def load(name: str, path: Callable[[], Path],
+         bind: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
+    """The library ``name``, on the first call loaded from ``path()`` and
+    bound by ``bind``, under one lock for all of the port's libraries."""
+    with _lock:
+        if name not in _loaded:
+            lib = ctypes.CDLL(str(path()))
+            bind(lib)
+            _loaded[name] = lib
+        return _loaded[name]
 
 
 def build_library() -> Path:
-    """Compile ``tiffcodec.cpp`` unless this source is already built; the
-    library's name carries a hash of the source. Concurrent processes each
-    compile to their own temporary name and move it into place, so none
-    loads a half-written file. Raises ``RuntimeError`` when g++ fails."""
-    tag = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libtiffcodec_{tag}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = ["g++", "-O3", "-shared", "-fPIC", str(SOURCE), "-o", str(tmp)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"g++ failed ({proc.returncode}) building "
-                           f"{SOURCE}:\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib
+    """``tiffcodec.cpp`` built with ``g++ -O3 -shared -fPIC`` (:func:`build`)."""
+    return build(SOURCE, "tiffcodec", lambda out: [
+        "g++", "-O3", "-shared", "-fPIC", str(SOURCE), "-o", str(out)])[0]
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    u8 = ctypes.POINTER(ctypes.c_uint8)
+    lib.packbits_decode.restype = ctypes.c_long
+    lib.packbits_decode.argtypes = [u8, ctypes.c_long, u8, ctypes.c_long]
+    lib.packbits_encode.restype = ctypes.c_long
+    lib.packbits_encode.argtypes = [u8, ctypes.c_long, u8]
+    lib.lzw_decode.restype = ctypes.c_long
+    lib.lzw_decode.argtypes = [u8, ctypes.c_long, u8, ctypes.c_long]
+    lib.blend_tiles.restype = None
+    lib.blend_tiles.argtypes = [
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_uint16), ctypes.c_long, ctypes.c_long,
+        ctypes.c_long, ctypes.POINTER(ctypes.c_uint16),
+        ctypes.POINTER(ctypes.c_uint16), ctypes.POINTER(ctypes.c_int32),
+        ctypes.c_long, ctypes.c_long, ctypes.c_long,
+    ]
 
 
 def get_lib() -> ctypes.CDLL:
     """The loaded library, built on the first call."""
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build_library()))
-            u8 = ctypes.POINTER(ctypes.c_uint8)
-            lib.packbits_decode.restype = ctypes.c_long
-            lib.packbits_decode.argtypes = [u8, ctypes.c_long, u8, ctypes.c_long]
-            lib.packbits_encode.restype = ctypes.c_long
-            lib.packbits_encode.argtypes = [u8, ctypes.c_long, u8]
-            lib.lzw_decode.restype = ctypes.c_long
-            lib.lzw_decode.argtypes = [u8, ctypes.c_long, u8, ctypes.c_long]
-            lib.blend_tiles.restype = None
-            lib.blend_tiles.argtypes = [
-                ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
-                ctypes.POINTER(ctypes.c_uint16), ctypes.c_long, ctypes.c_long,
-                ctypes.c_long, ctypes.POINTER(ctypes.c_uint16),
-                ctypes.POINTER(ctypes.c_uint16), ctypes.POINTER(ctypes.c_int32),
-                ctypes.c_long, ctypes.c_long, ctypes.c_long,
-            ]
-            _lib = lib
-    return _lib
+    return load("tiffcodec", build_library, _bind)
 
 
 def _u8ptr(buf: np.ndarray):

@@ -15,26 +15,24 @@ contiguous output.
 
 The kernel is built at first use with ``nvcc`` into ``build/srbh_tpu_torch/``
 beside the package, as a shared library with a plain C interface, and bound
-with ``ctypes``. It is forward-only, like the Pallas kernel.
+with ``ctypes``, through the port's one build-and-load path
+(``native.build`` and ``native.load``). It is forward-only, like the Pallas
+kernel.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
-import subprocess
 from pathlib import Path
-from typing import Optional
 
 import torch
 
+from srbh_tpu_torch import native
+
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "window_attention.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "srbh_tpu_torch"
 MAX_N = 64
 MAX_D = 64
-
-_lib: Optional[ctypes.CDLL] = None
 
 
 def window_attention_reference(q, k, v, bias, mask=None):
@@ -65,44 +63,26 @@ def _nvcc() -> str:
 
 
 def build_kernel() -> tuple[Path, str]:
-    """Compile the kernel for sm_90a unless this source is already built.
+    """The kernel built for sm_90a (``native.build``): the library's path
+    and the compiler's output (``-Xptxas -v``: registers, shared memory and
+    spills per kernel), kept in a ``.log`` beside the library. The library's
+    name carries a hash of the source, so an edited source is rebuilt."""
+    return native.build(SOURCE, "window_attention", lambda out: [
+        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+        "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+        "-o", str(out), str(SOURCE)], log=True)
 
-    Returns the library's path and the compiler's output (``-Xptxas -v``:
-    registers, shared memory and spills per kernel), which is also kept in a
-    ``.log`` file beside the library. The library's name carries a hash of
-    the source, so an edited source is always rebuilt.
-    """
-    tag = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libwindow_attention_{tag}.so"
-    log = lib.with_suffix(".log")
-    if lib.exists() and log.exists():
-        return lib, log.read_text()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{out}")
-    log.write_text(out)
-    os.replace(tmp, lib)
-    return lib, out
+
+def _bind(lib: ctypes.CDLL) -> None:
+    for fn in (lib.srbh_window_attention_f32, lib.srbh_window_attention_bf16):
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                       + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int,
+                          ctypes.c_void_p])
+        fn.restype = ctypes.c_int
 
 
 def _load() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        path, _ = build_kernel()
-        lib = ctypes.CDLL(str(path))
-        for fn in (lib.srbh_window_attention_f32, lib.srbh_window_attention_bf16):
-            fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-                           + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int,
-                              ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+    return native.load("window_attention", lambda: build_kernel()[0], _bind)
 
 
 def _check(q, k, v, bias, mask):

@@ -31,14 +31,14 @@ alone is a root ``predict.step``.
 """
 from __future__ import annotations
 
-import contextlib
 import os
 import pathlib
+from functools import partial
 from typing import Optional, Sequence
 
 import torch
 
-from srbh_tpu_torch import resolve_device
+from srbh_tpu_torch import compute_type, resolve_device
 from srbh_tpu_torch.data.grid import GridImageDataset
 from srbh_tpu_torch.data.pipeline import DataLoader
 from srbh_tpu_torch.parallel import mesh as pmesh
@@ -71,10 +71,17 @@ def serving_outputs(model, sr_model, x, rgb_idx=(0, 1, 2),
     under ``torch.autocast`` on ``x``'s device (weights stay float32, as the
     JAX package's ``dtype`` keeps its params float32); the post-processing
     is float32."""
+    return _serve(model, partial(sr_model, features_only=True), x, rgb_idx,
+                  dtype)
+
+
+def _serve(model, features, x, rgb_idx, dtype):
+    """:func:`serving_outputs` with ``features`` (RGB batch -> SR features)
+    in place of the trunk: the one composition of the serving step."""
     with compute_type(x.device, dtype):
         rgb = _rgb_channels(x, rgb_idx)
         with profiler.span("predict.sr_features", device=True):
-            fea = sr_model(rgb, features_only=True)
+            fea = features(rgb)
         with profiler.span("predict.height_model", device=True):
             outs = model(x, fea)
     return postprocess(outs[0], outs[1])
@@ -85,13 +92,6 @@ def _rgb_channels(x, rgb_idx):
     contiguous tensor): ``torch.cat`` of channel slices keeps the layout that
     the slices' strides share."""
     return torch.cat([x[:, i:i + 1] for i in rgb_idx], 1)
-
-
-def compute_type(device, dtype):
-    """float32 as it is, or ``torch.autocast`` in ``dtype`` on ``device``."""
-    if dtype == torch.float32:
-        return contextlib.nullcontext()
-    return torch.autocast(torch.device(device).type, dtype=dtype)
 
 
 def postprocess(height, build):
@@ -118,7 +118,11 @@ def make_city_step(model, sr_model, rgb_idx=(0, 1, 2), dtype=torch.bfloat16,
     ``torch.channels_last`` here, in place, and the NHWC image's NCHW view
     is channels-last, so every activation from the first conv to the heads
     keeps that layout and cuDNN's NHWC kernels get their operands without a
-    transform a call.
+    transform a call. The conversion is in place, not on a copy, because
+    callers act on the modules they passed: the benchmark's forward timers
+    hook them, and ``srbh_tpu_torch.bench`` calls :func:`serving_outputs`
+    on them after building the step; a copy would also hold the weights
+    twice. A second step built on converted modules gives the same maps.
 
     With ``mesh`` every rank passes the same whole batch and gets the whole
     batch's outputs: ``partition="data"`` runs each data rank's
@@ -131,40 +135,32 @@ def make_city_step(model, sr_model, rgb_idx=(0, 1, 2), dtype=torch.bfloat16,
     sr_model = sr_model.eval().to(dev, memory_format=torch.channels_last)
     if partition not in ("data", "spatial"):
         raise ValueError(f"partition {partition!r}: 'data' or 'spatial'")
-    if mesh is None:
-        def step(image):
-            with profiler.span("predict.step"):
-                x = torch.as_tensor(image, device=dev)
-                x = x.permute(0, 3, 1, 2).float()
-                with torch.inference_mode():
-                    return serving_outputs(model, sr_model, x, rgb_idx,
-                                           dtype)[2:]
+    features = partial(sr_model, features_only=True)
+    if mesh is not None:
+        data = mesh.get_group(pmesh.DATA_AXIS)
+        rows = mesh.get_group(pmesh.MODEL_AXIS)
+        if partition == "spatial":
+            banded = spatial_parallel(sr_model, rows)
 
-        return step
-    data = mesh.get_group(pmesh.DATA_AXIS)
-    rows = mesh.get_group(pmesh.MODEL_AXIS)
-    banded = spatial_parallel(sr_model, rows) if partition == "spatial" else None
+            def features(rgb):
+                band = banded(split_rows(rgb, rows), features_only=True)
+                return gather_rows(band, rows)
 
-    def mesh_step(image):
+    def step(image):
         with profiler.span("predict.step"):
             x = torch.as_tensor(image, device=dev).permute(0, 3, 1, 2).float()
-            if partition == "spatial" and x.shape[2] % world(rows):
-                raise ValueError(f"{x.shape[2]} rows do not divide over "
-                                 f"{world(rows)} model ranks")
-            x = pmesh.shard_batch(x, data)
+            if mesh is not None:
+                if partition == "spatial" and x.shape[2] % world(rows):
+                    raise ValueError(f"{x.shape[2]} rows do not divide over "
+                                     f"{world(rows)} model ranks")
+                x = pmesh.shard_batch(x, data)
             with torch.inference_mode():
-                if banded is None:
-                    h, b = serving_outputs(model, sr_model, x, rgb_idx,
-                                           dtype)[2:]
-                else:
-                    with compute_type(dev, dtype):
-                        rgb = split_rows(_rgb_channels(x, rgb_idx), rows)
-                        band = banded(rgb, features_only=True)
-                        outs = model(x, gather_rows(band, rows))
-                    h, b = postprocess(outs[0], outs[1])[2:]
+                h, b = _serve(model, features, x, rgb_idx, dtype)[2:]
+            if mesh is None:
+                return h, b
             return pmesh.gather_batch(h, data), pmesh.gather_batch(b, data)
 
-    return mesh_step
+    return step
 
 
 def _canvas_bytes(width: int, height: int, n_classes: int,

@@ -52,7 +52,7 @@ from typing import Mapping, Optional, Tuple
 
 import torch
 
-from srbh_tpu_torch import resolve_device
+from srbh_tpu_torch import compute_type, resolve_device
 from srbh_tpu_torch.losses.sr import gan_loss, l1_loss, perceptual_loss
 from srbh_tpu_torch.models.discriminators import UNetDiscriminatorSN
 from srbh_tpu_torch.models.layers import init_weights
@@ -189,11 +189,6 @@ class RealESRGANTrainer:
         g_ema = copy.deepcopy(net_g).eval().requires_grad_(False)
         return GANTrainState(net_g, g_ema, net_d.to(dev), self.lr)
 
-    def _compute(self, dev):
-        if self.dtype == torch.float32:
-            return contextlib.nullcontext()
-        return torch.autocast(dev.type, dtype=self.dtype)
-
     @staticmethod
     def _autotuned(dev):
         """On a card, ``torch.backends.cudnn.benchmark`` for the length of
@@ -238,7 +233,7 @@ class RealESRGANTrainer:
                 percep_gt = gt_usm if self.percep_gt_usm else gt
                 gan_gt = gt_usm if self.gan_gt_usm else gt
                 net_d.requires_grad_(False)
-                with self._compute(dev):
+                with compute_type(dev, self.dtype):
                     output = net_g(lq)
                     fake_g = net_d(output, train=False)
                     if vgg is not None:
@@ -265,7 +260,7 @@ class RealESRGANTrainer:
             # the discriminator, two forwards that each store their norms
             with profiler.span("gan.d_pass", device=True):
                 net_d.requires_grad_(True)
-                with self._compute(dev):
+                with compute_type(dev, self.dtype):
                     real_pred = net_d(gan_gt, train=True).float()
                     fake_pred = net_d(output.detach(), train=True).float()
                 l_real = gan_loss(real_pred, True, "vanilla", is_disc=True)
@@ -304,7 +299,8 @@ class RealESRGANTrainer:
 
         def apply(state: GANTrainState, lq, features_only: bool = False):
             dev = state.device
-            with torch.no_grad(), self._autotuned(dev), self._compute(dev):
+            with torch.no_grad(), self._autotuned(dev), compute_type(
+                    dev, self.dtype):
                 out = state.g_ema(_nchw(lq, dev), features_only=features_only)
             return out.float().permute(0, 2, 3, 1)
 

@@ -27,12 +27,10 @@ averaged, and the metrics the global batch's.
 """
 from __future__ import annotations
 
-import contextlib
-
 import numpy as np
 import torch
 
-from srbh_tpu_torch import resolve_device
+from srbh_tpu_torch import compute_type, resolve_device
 from srbh_tpu_torch.losses.adaptive import (
     ce_dice_adapt,
     ce_dice_adapt_weight,
@@ -53,14 +51,6 @@ from srbh_tpu_torch.parallel.data import (
     global_batchnorm,
     mean_over,
 )
-
-
-def _compute(dev: torch.device, dtype: torch.dtype):
-    """float32, or autocast in ``dtype`` (parameters stay float32, as the
-    JAX package's ``dtype`` keeps its params float32)."""
-    if dtype == torch.float32:
-        return contextlib.nullcontext()
-    return torch.autocast(dev.type, dtype=dtype)
 
 
 def _to_device(batch, keys, dev):
@@ -203,7 +193,7 @@ def make_train_step(model, sr_model, rgb_idx=(0, 1, 2), isaggre: bool = True,
         gen = torch.Generator(device=dev).manual_seed(step_seed(seed, state.step))
         if group is not None:
             gen = BatchRows(gen, *rows)
-        with _compute(dev, dtype):
+        with compute_type(dev, dtype):
             fea = _features(sr_model, image, rgb)
             outs = net(image, *fea, generator=gen)
         lv = state.log_vars
@@ -237,7 +227,7 @@ def make_train_step(model, sr_model, rgb_idx=(0, 1, 2), isaggre: bool = True,
 def _eval_heads(model, sr_model, rgb, dev, dtype, image):
     model.eval()
     x = _nchw(torch.as_tensor(image).to(dev, non_blocking=True))
-    with torch.no_grad(), _compute(dev, dtype):
+    with torch.no_grad(), compute_type(dev, dtype):
         return model(x, *_features(sr_model, x, rgb))
 
 

@@ -11,8 +11,11 @@ versions and the JAX package.
 * ``blend_tiles`` (through ``MosaicAccumulator.add_batch``) gives the
   mosaic of ``add_batch_plain`` and of the JAX stitcher, uint8 and uint16
   build tiles; a tile outside the canvas raises before anything is added.
-* A failed build raises.
+* A failed build raises. A second build of an unchanged source (the codec's
+  or the window-attention kernel's, through the shared ``native.build``)
+  returns the library already built without running the compiler.
 """
+import hashlib
 import os
 
 import cv2
@@ -24,6 +27,7 @@ from srbh_tpu.data import tiff as jtiff
 from srbh_tpu.predict.stitcher import MosaicAccumulator as JaxMosaic
 from srbh_tpu_torch import native
 from srbh_tpu_torch.data import tiff
+from srbh_tpu_torch.ops import window_attention as wa
 from srbh_tpu_torch.predict.stitcher import MosaicAccumulator
 from test_torch_port_rules import _one_torch_thread  # noqa: F401 (autouse)
 
@@ -146,3 +150,51 @@ def test_the_library_is_built_from_the_ports_source():
     path = native.build_library()
     assert path.parent == native.BUILD_DIR and path.exists()
     assert native.get_lib()._name == str(path)
+
+
+def _refuse(*args, **kwargs):
+    raise AssertionError("the compiler ran for a source already built")
+
+
+@pytest.mark.parametrize("log", [False, True])
+def test_a_second_build_reuses_the_library(tmp_path, monkeypatch, log):
+    """The shared builder's cache: the second build of an unchanged source
+    returns the first one's path (and, with ``log``, the compiler's output
+    kept beside it) and runs no compiler."""
+    src = tmp_path / "probe.cpp"
+    src.write_text('extern "C" int probe() { return 7; }\n')
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
+
+    def command(out):
+        return ["g++", "-O3", "-shared", "-fPIC", str(src), "-o", str(out)]
+
+    path, out = native.build(src, "probe", command, log=log)
+    assert path.parent == native.BUILD_DIR and path.exists()
+    assert path.name.startswith("libprobe_")
+    assert path.with_suffix(".log").exists() == log
+    monkeypatch.setattr(native.subprocess, "run", _refuse)
+    assert native.build(src, "probe", command, log=log) == (
+        path, out if log else "")
+    assert sorted(os.listdir(native.BUILD_DIR)) == sorted(
+        [path.name] + [path.with_suffix(".log").name] * log)
+
+
+def test_the_kernel_already_built_is_not_rebuilt(tmp_path, monkeypatch):
+    """``build_kernel`` takes the library and its log that a build of the
+    same source left (the names a hash of the source) without looking for
+    nvcc, and returns the log's text; a library without its log is
+    rebuilt."""
+    src = tmp_path / "window_attention.cu"
+    src.write_text("// the kernel\n")
+    monkeypatch.setattr(wa, "SOURCE", src)
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
+    tag = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    lib = tmp_path / f"libwindow_attention_{tag}.so"
+    lib.write_bytes(b"")
+    lib.with_suffix(".log").write_text("ptxas info: 0 bytes spill stores\n")
+    monkeypatch.setattr(native.subprocess, "run", _refuse)
+    monkeypatch.setattr(wa, "_nvcc", lambda: "nvcc")
+    assert wa.build_kernel() == (lib, "ptxas info: 0 bytes spill stores\n")
+    lib.with_suffix(".log").unlink()
+    with pytest.raises(AssertionError, match="the compiler ran"):
+        wa.build_kernel()

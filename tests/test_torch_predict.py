@@ -184,6 +184,29 @@ def test_step_runs_channels_last(models, dtype):
     assert bdiff.max() <= 1 and (bdiff > 0).mean() <= LSB_SHARE
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_city_step_converts_the_passed_modules_in_place(models, dtype):
+    """``make_city_step`` converts the modules it is given, not copies (the
+    benchmark's forward timers and ``srbh_tpu_torch.bench`` act on them
+    after building the step): every conv weight of both is channels-last
+    afterwards, and a second step built on them gives the first step's maps
+    bit for bit."""
+    dtype = getattr(torch, dtype)
+    image = torch.rand((2, 64, 64, 8),
+                       generator=torch.Generator().manual_seed(5))
+    tm, tsr = (copy.deepcopy(models[k]).to(
+        memory_format=torch.contiguous_format) for k in ("tm", "tsr"))
+    first = make_city_step(tm, tsr, dtype=dtype, device="cpu")(image)
+    weights = [m.weight for net in (tm, tsr) for m in net.modules()
+               if isinstance(m, torch.nn.Conv2d)]
+    assert len(weights) > 10
+    assert all(w.is_contiguous(memory_format=torch.channels_last)
+               for w in weights)
+    second = make_city_step(tm, tsr, dtype=dtype, device="cpu")(image)
+    for a, b in zip(first, second):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
 def _explode(_image):
     raise AssertionError("the step ran for a finished city")
 

@@ -25,10 +25,14 @@ frameworks are compared: their random bits differ.
     gradient is near zero may move either way in the two frameworks; step-3
     BatchNorm statistics compound such flips and are not compared element by
     element.
-(d) ``make_eval_step`` and ``make_predict_step`` within 1e-5.
+(d) ``make_eval_step`` and ``make_predict_step`` within 1e-5; and, on the
+    tiny flagship, bit for bit the same models run by hand in their compute
+    type (float32 as it is, bfloat16 under ``torch.autocast``).
 (e) Drop-connect: per-block rates, survivors scaled by exactly 1/keep, the
     drop rate within 3 sigma, the identity in eval mode, seeded draws.
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -46,7 +50,7 @@ from srbh_tpu.train.state import TrainState as JaxState
 from srbh_tpu.train.steps import make_eval_step as jax_eval_step
 from srbh_tpu.train.steps import make_predict_step as jax_predict_step
 from srbh_tpu.train.steps import make_train_step as jax_train_step
-from srbh_tpu_torch import convert
+from srbh_tpu_torch import convert, entry
 from srbh_tpu_torch.losses.adaptive import ce_dice_adapt_weight, mse_adapt_weight
 from srbh_tpu_torch.models.efficientnet import MBConv
 from srbh_tpu_torch.models.height_model import SRRegressClsFeature
@@ -439,6 +443,34 @@ def test_eval_and_predict_steps_match_jax(setup):
                                device="cpu")(b["image"])
     np.testing.assert_allclose(gh.numpy(), np.asarray(wh), atol=1e-5, rtol=1e-5)
     np.testing.assert_allclose(gb.numpy(), np.asarray(wb), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_eval_and_predict_steps_run_in_their_compute_type(dtype):
+    """The steps' compute type is the one rule of the package root: in
+    bfloat16 the steps equal, bit for bit, the frozen SR features and the
+    height model run by hand under ``torch.autocast("cpu", bfloat16)``; in
+    float32 the models run without autocast."""
+    dtype = getattr(torch, dtype)
+    model, sr, _ = entry.flagship(tiny=True, device="cpu")
+    rng = np.random.default_rng(11)
+    batch = {"image": rng.random((2, 64, 64, 8), np.float32),
+             "height": rng.random((2, 256, 256), np.float32) * 30}
+    x = torch.from_numpy(batch["image"]).permute(0, 3, 1, 2)
+    scope = (torch.autocast("cpu", dtype=dtype) if dtype != torch.float32
+             else contextlib.nullcontext())
+    with torch.no_grad(), scope:
+        outs = model(x, sr(x[:, [0, 1, 2]], features_only=True))
+    assert outs[0].dtype == dtype
+    mse = torch.mean((outs[0][:, 0].float()
+                      - torch.from_numpy(batch["height"])) ** 2)
+    got = make_eval_step(model, sr, dtype=dtype, device="cpu")(batch)
+    assert torch.equal(got["loss"], mse)
+    assert torch.equal(got["rmse"], torch.sqrt(mse))
+    h, b = make_predict_step(model, sr, dtype=dtype,
+                             device="cpu")(batch["image"])
+    assert torch.equal(h, outs[0][:, 0])
+    assert torch.equal(b, outs[1].permute(0, 2, 3, 1))
 
 
 # ---------------------------------------------------------------- (e)
