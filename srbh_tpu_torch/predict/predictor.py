@@ -14,6 +14,13 @@ when its canvases fit the budget). The last batch of a city is run as it
 is, shorter than the others (the JAX package pads it to one shape for
 ``jit``). A city is skipped when both of its tifs exist.
 
+On a card the step replays its two module forwards (the RRDB trunk's
+features, the height model) from CUDA graphs captured for the batch's
+shape: a shape's first call runs eagerly, its next call in a row captures,
+later calls replay. A shape not seen twice running, such as a city's short
+last batch, runs eagerly, as does every forward off a card, over a mesh or
+under grad. The step's outputs are fresh tensors on every call.
+
 ``make_city_step(mesh=...)`` is the step's mesh form over a process group
 (``parallel.mesh.make_mesh``): ``partition="data"`` splits the batch over
 the data ranks, ``"spatial"`` also splits the RRDB trunk's rows over the
@@ -25,14 +32,19 @@ stitcher.
 Spans (``utils/profiler.py``): ``predict.city`` around each city mapped,
 over the loader's ``loader.start``, each batch's ``predict.step`` (with
 ``predict.sr_features`` and ``predict.height_model``, timed on the card's
-stream too) and ``predict.copy_out`` (host stitching), then
+stream too, each over a ``predict.capture`` where the call captures its
+graph or a ``predict.replay`` where it replays one) and
+``predict.copy_out`` (host stitching), then
 ``predict.finalize`` and one ``predict.write`` a GeoTIFF. A step called
 alone is a root ``predict.step``.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import os
 import pathlib
+import types
 from functools import partial
 from typing import Optional, Sequence
 
@@ -105,6 +117,148 @@ def postprocess(height, build):
             b.permute(0, 2, 3, 1).contiguous())
 
 
+# the graphs of the step that is running, which the forward that
+# make_city_step installs on its two modules reads; None outside a step
+_RUNNING = contextvars.ContextVar("srbh_tpu_torch.city_step", default=None)
+
+
+def _step_forward(self, *args, **kwargs):
+    """A module's forward while :func:`make_city_step` has it: inside a step
+    its graphs decide (:class:`_StepGraphs`), anywhere else the class's
+    forward runs."""
+    graphs = _RUNNING.get()
+    if graphs is None:
+        return type(self).forward(self, *args, **kwargs)
+    return graphs.forward(self, args, kwargs)
+
+
+@contextlib.contextmanager
+def _running(graphs):
+    token = _RUNNING.set(graphs)
+    with contextlib.ExitStack() as undo:
+        undo.callback(_RUNNING.reset, token)
+        yield
+
+
+class _StepGraphs:
+    """The CUDA graphs of one step's module forwards, and the step's counts
+    of ``captures``, ``replays`` and ``eager`` forwards.
+
+    A forward is keyed by its module, each argument (a tensor's shape,
+    dtype, strides, which give its memory format, and device; any other
+    value as it is) and the compute type (autocast's state). It runs
+    eagerly where a graph could not replay it: a step off a card or over a
+    mesh (``capture`` false), grad enabled, a tensor off the card, or a
+    forward hook on a module inside it (hooks on the module itself wrap
+    the replay). Otherwise the first call with a key runs eagerly, the
+    warm-up that a capture needs; when the module's next call has the same
+    key, that call captures its forward into a graph and replays it, and
+    later calls with the key replay it. A key that is not seen twice
+    running (the city's short last batch) stays eager, and holds no graph
+    memory.
+
+    A replay copies the tensors it is given into the graph's inputs but a
+    static output of the step's other graph, which it reads where it lies:
+    the height model's graph is captured on the trunk's features, in the
+    trunk graph's memory pool. It returns the graph's static outputs, which
+    the next replay overwrites; the step returns only tensors that its
+    post-processing makes afresh."""
+
+    def __init__(self, capture: bool):
+        self.capture = capture
+        self.graphs = {}  # key -> _Graph
+        self.last = {}  # id(module) -> key of its last eager forward
+        self.inner = {}  # id(module) -> its modules but itself
+        self.captures = self.replays = self.eager = 0
+
+    def forward(self, module, args, kwargs):
+        names = sorted(kwargs)
+        values = [*args, *(kwargs[k] for k in names)]
+        key = self._key(module, values, names)
+        graph = self.graphs.get(key)
+        if graph is not None:
+            self.replays += 1
+            with profiler.span("predict.replay"):
+                return graph.replay(values)
+        if key is None or self.last.get(id(module)) != key:
+            self.last[id(module)] = key
+            self.eager += 1
+            return type(module).forward(module, *args, **kwargs)
+        owners = {t.data_ptr(): g for g in self.graphs.values()
+                  for t in g.outputs}
+        with profiler.span("predict.capture"):
+            graph = self.graphs[key] = _Graph(module, values, len(args),
+                                              names, owners)
+        self.captures += 1
+        return graph.replay(values)
+
+    def _key(self, module, values, names):
+        """The forward's key, or ``None`` where it runs eagerly."""
+        if (not self.capture or torch.is_grad_enabled() or self._hooked(module)
+                or any(isinstance(v, torch.Tensor) and v.device.type != "cuda"
+                       for v in values)):
+            return None
+        return (id(module), tuple(names), torch.is_autocast_enabled("cuda"),
+                torch.get_autocast_dtype("cuda"), *(
+                    (tuple(v.shape), v.dtype, v.stride(), v.device)
+                    if isinstance(v, torch.Tensor) else v for v in values))
+
+    def _hooked(self, module) -> bool:
+        inner = self.inner.get(id(module))
+        if inner is None:
+            inner = self.inner[id(module)] = list(module.modules())[1:]
+        return any(m._forward_hooks or m._forward_pre_hooks for m in inner)
+
+
+class _Graph:
+    """One module forward captured into a CUDA graph: its inputs, the graph
+    and its static outputs. ``owners`` maps the address of each static
+    output of the step's graphs to its graph: an argument that lies there is
+    read in place, in that graph's memory pool."""
+
+    def __init__(self, module, values, n_args, names, owners):
+        shared = [owners.get(v.data_ptr()) if isinstance(v, torch.Tensor)
+                  else None for v in values]
+        pool = next((g.pool for g in shared if g is not None), None)
+        self.pool = torch.cuda.graph_pool_handle() if pool is None else pool
+        self.inputs = [_static_copy(v) if isinstance(v, torch.Tensor)
+                       and g is None else v for v, g in zip(values, shared)]
+        kwargs = dict(zip(names, self.inputs[n_args:]))
+        self.graph = torch.cuda.CUDAGraph()
+        # captured on a side stream that follows the current one, as
+        # ``torch.cuda.graph`` does, without its garbage collection and its
+        # emptying of the device's and the pinned host memory's caches; the
+        # loader's threads may use the card meanwhile ("thread_local")
+        dev = next(v.device for v in values if isinstance(v, torch.Tensor))
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.device(dev), torch.cuda.stream(side), \
+                contextlib.ExitStack() as capture:
+            self.graph.capture_begin(self.pool,
+                                     capture_error_mode="thread_local")
+            capture.callback(self.graph.capture_end)
+            self.out = type(module).forward(module, *self.inputs[:n_args],
+                                            **kwargs)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.outputs = [t for t in (self.out if isinstance(self.out, tuple)
+                                    else (self.out,))
+                        if isinstance(t, torch.Tensor)]
+
+    def replay(self, values):
+        for static, v in zip(self.inputs, values):
+            if isinstance(v, torch.Tensor) and v.data_ptr() != static.data_ptr():
+                static.copy_(v)
+        with profiler.graph_launch("predict.graph_replay"):
+            self.graph.replay()
+        return self.out
+
+
+def _static_copy(t):
+    """A copy of ``t`` with its strides (and so its memory format)."""
+    return torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                               device=t.device).copy_(t)
+
+
 def make_city_step(model, sr_model, rgb_idx=(0, 1, 2), dtype=torch.bfloat16,
                    device=None, mesh=None, partition: str = "data"):
     """Batch step: NHWC image (B, 64, 64, 8) -> (uint16 height in decimetres
@@ -124,6 +278,24 @@ def make_city_step(model, sr_model, rgb_idx=(0, 1, 2), dtype=torch.bfloat16,
     on them after building the step; a copy would also hold the weights
     twice. A second step built on converted modules gives the same maps.
 
+    On a card the step replays each of its two module forwards, the trunk's
+    features and the height model, from a CUDA graph, so that the host
+    enqueues two graph launches and the few small operations around them
+    instead of some 3900 kernels. The step sets each module's ``forward``
+    to one that, inside this step's calls only, captures and replays the
+    module's forward (:class:`_StepGraphs`), and anywhere else runs the
+    class's forward: hooks on the two modules fire around every replay, and
+    every other caller of them runs eagerly. A batch shape's first call
+    runs eagerly, its next call in a row captures, later ones replay; a
+    shape not seen twice running (a city's short last batch, which is not
+    padded: bf16 outputs depend on the batch size) runs eagerly. Off a
+    card, with ``mesh`` or under grad every forward runs eagerly. A replay
+    launches the kernels the eager forward launches, autocast's weight
+    casts included, and gives the same bits; the step's outputs are fresh
+    tensors that a later call leaves alone. ``step.graphs`` holds the
+    graphs and the counts of ``captures``, ``replays`` and ``eager``
+    forwards.
+
     With ``mesh`` every rank passes the same whole batch and gets the whole
     batch's outputs: ``partition="data"`` runs each data rank's
     ``shard_batch`` rows; ``"spatial"`` also runs the RRDB trunk on bands of
@@ -135,6 +307,9 @@ def make_city_step(model, sr_model, rgb_idx=(0, 1, 2), dtype=torch.bfloat16,
     sr_model = sr_model.eval().to(dev, memory_format=torch.channels_last)
     if partition not in ("data", "spatial"):
         raise ValueError(f"partition {partition!r}: 'data' or 'spatial'")
+    for m in (model, sr_model):
+        m.forward = types.MethodType(_step_forward, m)
+    graphs = _StepGraphs(capture=dev.type == "cuda" and mesh is None)
     features = partial(sr_model, features_only=True)
     if mesh is not None:
         data = mesh.get_group(pmesh.DATA_AXIS)
@@ -154,12 +329,13 @@ def make_city_step(model, sr_model, rgb_idx=(0, 1, 2), dtype=torch.bfloat16,
                     raise ValueError(f"{x.shape[2]} rows do not divide over "
                                      f"{world(rows)} model ranks")
                 x = pmesh.shard_batch(x, data)
-            with torch.inference_mode():
+            with torch.inference_mode(), _running(graphs):
                 h, b = _serve(model, features, x, rgb_idx, dtype)[2:]
             if mesh is None:
                 return h, b
             return pmesh.gather_batch(h, data), pmesh.gather_batch(b, data)
 
+    step.graphs = graphs
     return step
 
 

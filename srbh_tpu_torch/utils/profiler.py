@@ -12,11 +12,12 @@ Counterpart of ``srbh_tpu/utils/profiler.py``:
 The port's own spans (not in the JAX package): the city path, the serving
 step and the GAN step each open a :func:`span` at their layers
 (``predict.city``, ``loader.start``, ``predict.step``,
-``predict.sr_features``, ``predict.height_model``, ``predict.copy_out``,
-``predict.finalize``, ``predict.write``, ``tiff.encode``, ``gan.step``,
-``gan.g_pass``, ``gan.g_adam``, ``gan.d_pass``, ``gan.d_adam``,
-``gan.ema``), and so does SwinIR (``swinir.apply``, ``swinir.body``,
-``swinir.rstb``, ``swinir.upsample``). They record only while a
+``predict.sr_features``, ``predict.height_model``, ``predict.capture``,
+``predict.replay``, ``predict.copy_out``, ``predict.finalize``,
+``predict.write``, ``tiff.encode``, ``gan.step``, ``gan.g_pass``,
+``gan.g_adam``, ``gan.d_pass``, ``gan.d_adam``, ``gan.ema``), and so does
+SwinIR (``swinir.apply``, ``swinir.body``, ``swinir.rstb``,
+``swinir.upsample``). They record only while a
 ``torch.profiler`` session records or a :func:`recording` block is open;
 otherwise :func:`span` returns one shared object that does nothing, after a
 single check: no clock reading, no allocation, no CUDA event.
@@ -25,7 +26,9 @@ single check: no clock reading, no allocation, no CUDA event.
   range ``srbh.<name>`` on the profiler's own clock, beside the kernels
   (TensorBoard's trace view), and records the spans too;
 * ``with profiler.recording(): ...`` then ``profiler.spans()`` gives them as
-  a list with no profiler; :func:`clear` empties the store.
+  a list with no profiler; :func:`clear` empties the store;
+* :func:`graph_launch` is an operator's range around a CUDA graph's
+  launch, which ties the graph's kernels to the ranges around it.
 
 Each span of :func:`spans` is a dict: ``name``; ``parent``, the index of
 its parent in the list (``None`` for a root); ``t0_ns`` / ``t1_ns``
@@ -178,6 +181,19 @@ def span(name: str, device: bool = False):
     if not (_recording or _autograd_profiler._is_profiler_enabled):
         return _OFF
     return _Span(name, device)
+
+
+def graph_launch(name: str):
+    """An operator's range in the profiler's trace around a call that
+    launches a CUDA graph. The profiler ties a kernel to the operator whose
+    range was open when it was launched, and so to every range around it;
+    a user range (:func:`annotate`, a span's ``srbh.`` range) ties none,
+    and a graph's launch has no operator of its own, so without this range
+    its kernels would belong to no range. Outside a profiler it returns
+    the shared object that does nothing."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return torch._C._profiler._RecordFunctionFast(name)
 
 
 @contextlib.contextmanager

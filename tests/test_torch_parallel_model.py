@@ -20,7 +20,7 @@ imports JAX only inside its fixtures, so the ranks start without it.
   validation errors.
 * ``make_city_step(mesh=...)``, ``partition="data"`` over 4 data ranks and
   ``"spatial"`` over 4 model ranks and over a 2 x 2 mesh: byte-equal to
-  the plain step.
+  the plain step, and eager (no CUDA graph) on every call.
 * ``stitch_tiles_sharded`` over 4 data ranks on 7 tiles: byte-equal to the
   host ``MosaicAccumulator``.
 * ``entry.dryrun_multichip(2, device="cpu")``.
@@ -182,6 +182,10 @@ def _rank_model(case_path):
         step = make_city_step(model, sr, dtype=torch.float32, device="cpu",
                               mesh=mesh, partition=partition)
         out[f"city {name}"] = [o.numpy() for o in step(case["img"])]
+        again = [o.numpy() for o in step(case["img"])]
+        g = step.graphs
+        out[f"city {name} graphs"] = (g.captures, g.replays, g.eager, all(
+            np.array_equal(a, b) for a, b in zip(again, out[f"city {name}"])))
     out["stitch"] = [c.numpy() for c in stitch_tiles_sharded(
         *case["tiles"], (SRC_H * UP, SRC_W * UP), tall, UP)]
     return out if rank() == 0 else None
@@ -356,6 +360,15 @@ def test_city_step_on_a_mesh_is_byte_equal(refs, name):
     for g, w in zip(got[f"city {name}"], want):
         assert g.dtype == w.numpy().dtype
         np.testing.assert_array_equal(g, w.numpy())
+
+
+@pytest.mark.parametrize("name", ["data", "spatial", "spatial 2x2"])
+def test_city_step_on_a_mesh_runs_eagerly(refs, name):
+    """The mesh forms never capture a graph (collectives run inside the
+    forwards): two calls of one shape run all four forwards eagerly, and
+    the second call's maps are the first's."""
+    captures, replays, eager, same = refs[2][f"city {name} graphs"]
+    assert (captures, replays, eager, same) == (0, 0, 4, True)
 
 
 def test_sharded_stitcher_is_byte_equal_to_the_host(refs):

@@ -9,6 +9,14 @@ lifted so heights survive the clamp at 0, float32 on both sides. The
 mosaics are quantised: heights may differ by 1 LSB (a value on a rounding
 edge rounds either way) on at most 0.1 % of pixels, and classes are equal
 on at least 99.9 %. The geotransform, colormap and GeoKeys are equal.
+
+The step's CUDA graphs: off a card every forward runs eagerly and the maps
+are the eager composition's. The ``gpu`` tests hold the graphed step at
+full width to the eager forward bit for bit, and check its hooks, fresh
+outputs and counts. JAX is imported only where a test uses it, so that they
+collect on the card's machine, which has none:
+``python -m pytest --noconftest -p no:cacheprovider -m gpu
+tests/test_torch_predict.py -q``.
 """
 import copy
 import os
@@ -18,14 +26,6 @@ import numpy as np
 import pytest
 import torch
 
-import jax
-import jax.numpy as jnp
-
-import __graft_entry__ as graft
-from srbh_tpu.data import grid as jgrid
-from srbh_tpu.data import tiff as jtiff
-from srbh_tpu.predict import predictor as jpred
-from srbh_tpu.train.convert import save_tree_npz
 from srbh_tpu_torch import convert
 from srbh_tpu_torch.data.grid import GridImageDataset
 from srbh_tpu_torch.data.tiff import TiffReader
@@ -46,9 +46,28 @@ LSB_SHARE = 1e-3  # quantised outputs: <= 1 LSB on <= 0.1 % of pixels
 KW = dict(s1dir="s1x", s2dir="s2x", gridvalid="isv", nchans=6)
 
 
+def _jax():
+    """The JAX package's side, imported where a test uses it (the card's
+    machine, which runs this file's ``gpu`` tests, has no JAX)."""
+    import jax
+    import jax.numpy as jnp
+
+    import __graft_entry__ as graft
+    from srbh_tpu.data import grid as jgrid
+    from srbh_tpu.data import tiff as jtiff
+    from srbh_tpu.predict import predictor as jpred
+    from srbh_tpu.train.convert import save_tree_npz
+
+    return types.SimpleNamespace(jax=jax, jnp=jnp, graft=graft, grid=jgrid,
+                                 tiff=jtiff, pred=jpred,
+                                 save_tree_npz=save_tree_npz)
+
+
 def write_city(root, name="demo", seed=0, w=200, h=150):
     """S2, S1, WSF and the tagged grid of one city, with the JAX package's
     writers, and the min-max tables under ``root/stats``."""
+    j = _jax()
+    jtiff, jgrid = j.tiff, j.grid
     os.makedirs(os.path.join(root, "stats"), exist_ok=True)
     rng = np.random.default_rng(seed)
     path = lambda suffix: os.path.join(root, f"{name}_{suffix}.tif")
@@ -84,6 +103,8 @@ def city(tmp_path_factory):
 @pytest.fixture(scope="module")
 def models():
     """The tiny flagship on both sides, the same weights."""
+    j = _jax()
+    jax, graft = j.jax, j.graft
     jm, jsr, variables, sr_params, _ = graft._flagship(tile=64, batch=2,
                                                        tiny=True)
     params = jax.device_get(variables["params"])
@@ -109,6 +130,8 @@ def _port_city(city, models, out, **kw):
 
 
 def test_predict_city_matches_jax(city, models, tmp_path):
+    j = _jax()
+    jgrid, jpred, jnp = j.grid, j.pred, j.jnp
     ds = jgrid.GridImageDataset(city, "demo", os.path.join(city, "stats"), **KW)
     step = jpred.make_city_step(models["jm"], models["jsr"], dtype=jnp.float32)
     want = jpred.predict_city(ds, step, models["variables"],
@@ -207,6 +230,172 @@ def test_city_step_converts_the_passed_modules_in_place(models, dtype):
         assert a.dtype == b.dtype and torch.equal(a, b)
 
 
+def _counts(step):
+    g = step.graphs
+    return g.captures, g.replays, g.eager
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cpu_step_runs_eagerly(dtype):
+    """Off a card the step captures no graph: three calls of one shape and
+    a short one run all eight forwards eagerly, and each call's maps are
+    :func:`serving_outputs`' on the same modules, bit for bit. Outside a
+    step the modules' installed forward is the class's:
+    :func:`serving_outputs` on them matches a copy the step never had,
+    and leaves the counts alone."""
+    from srbh_tpu_torch import entry
+
+    dtype = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(7)
+    pristine = [m.to(memory_format=torch.channels_last) for m in
+                entry.flagship(tiny=True, device="cpu", seed=7)[:2]]
+    tm, tsr = (copy.deepcopy(m) for m in pristine)
+    step = make_city_step(tm, tsr, dtype=dtype, device="cpu")
+    assert "forward" in vars(tm) and "forward" not in vars(pristine[0])
+    for batch in (2, 2, 2, 1):
+        image = torch.rand((batch, 64, 64, 8), generator=gen)
+        got = step(image)
+        with torch.inference_mode():
+            want = serving_outputs(tm, tsr, image.permute(0, 3, 1, 2),
+                                   dtype=dtype)
+            plain = serving_outputs(*pristine, image.permute(0, 3, 1, 2),
+                                    dtype=dtype)
+        for a, b, c in zip(got, want[2:], plain[2:]):
+            assert torch.equal(a, b) and torch.equal(a, c)
+        for a, c in zip(want, plain):
+            assert torch.equal(a, c)
+    assert _counts(step) == (0, 0, 8)
+
+
+def test_grad_enabled_forward_inside_a_step_runs_eagerly(models):
+    """A forward under grad inside a step's calls runs the class's forward
+    (counted eager), and its output carries the graph of its gradients."""
+    tm, tsr = (copy.deepcopy(models[k]) for k in ("tm", "tsr"))
+    step = make_city_step(tm, tsr, dtype=torch.float32, device="cpu")
+    rgb = torch.rand((1, 3, 16, 16), generator=torch.Generator().manual_seed(8))
+    with predictor._running(step.graphs), torch.enable_grad():
+        fea = tsr(rgb, features_only=True)
+    assert fea.requires_grad and _counts(step) == (0, 0, 1)
+    with torch.no_grad():
+        assert torch.equal(fea, type(tsr).forward(tsr, rgb, features_only=True))
+
+
+@pytest.fixture(scope="module")
+def card_models():
+    """The full-width flagship on the card, seeded weights (``gpu`` tests:
+    the card's machine has no JAX)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from srbh_tpu_torch import entry
+
+    model, sr, _ = entry.flagship(batch=1, device="cuda", seed=4)
+    return model, sr
+
+
+def _card_images(batch, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.rand((batch, 64, 64, 8), generator=gen, device="cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_graphed_step_is_bit_identical_on_card(card_models, dtype):
+    """Batches 32, 32, 32, an odd tail of 7, 32, then 16 three times: each
+    call's maps equal, bit for bit, :func:`serving_outputs` run eagerly on
+    a deep copy of the modules. The counts: one capture per forward and
+    shape seen twice running (32, 16), replays thereafter, the tail and
+    each shape's first call eager."""
+    dtype = getattr(torch, dtype)
+    model, sr = (copy.deepcopy(m) for m in card_models)
+    step = make_city_step(model, sr, dtype=dtype, device="cuda")
+    eager = [copy.deepcopy(m) for m in (model, sr)]
+    for i, batch in enumerate((32, 32, 32, 7, 32, 16, 16, 16)):
+        image = _card_images(batch, i)
+        got = step(image)
+        with torch.inference_mode():
+            want = serving_outputs(*eager, image.permute(0, 3, 1, 2),
+                                   dtype=dtype)[2:]
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b), (i, batch)
+    assert _counts(step) == (4, 6, 6)
+    assert all(p.dtype == torch.float32 for m in (model, sr)
+               for p in m.parameters())
+
+
+@pytest.mark.gpu
+def test_hooks_after_capture_wrap_every_replay_on_card(card_models):
+    """Forward hooks put on the two modules after their graphs were
+    captured fire on every replayed call, and CUDA events recorded by them
+    time the replayed kernels (non-zero); the counts show replays only."""
+    model, sr = (copy.deepcopy(m) for m in card_models)
+    step = make_city_step(model, sr, device="cuda")
+    image = _card_images(32, 11)
+    step(image)
+    step(image)
+    assert _counts(step) == (2, 0, 2)
+    pairs = {"sr": [], "model": []}
+    handles = []
+    for name, m in (("sr", sr), ("model", model)):
+        def pre(_m, _args, name=name):
+            pairs[name].append([torch.cuda.Event(enable_timing=True)])
+            pairs[name][-1][0].record()
+
+        def post(_m, _args, _out, name=name):
+            pairs[name][-1].append(torch.cuda.Event(enable_timing=True))
+            pairs[name][-1][1].record()
+
+        handles += [m.register_forward_pre_hook(pre),
+                    m.register_forward_hook(post)]
+    for _ in range(3):
+        step(image)
+    torch.cuda.synchronize()
+    for h in handles:
+        h.remove()
+    assert _counts(step) == (2, 6, 2)
+    for name in ("sr", "model"):
+        assert len(pairs[name]) == 3
+        assert all(s.elapsed_time(e) > 0 for s, e in pairs[name])
+
+
+@pytest.mark.gpu
+def test_replayed_outputs_survive_the_next_call_on_card(card_models):
+    """The maps a replayed call returns are fresh tensors: the next call,
+    on other tiles, leaves them as they were."""
+    model, sr = (copy.deepcopy(m) for m in card_models)
+    step = make_city_step(model, sr, device="cuda")
+    a, b = _card_images(16, 21), _card_images(16, 22)
+    for _ in range(3):
+        first = step(a)
+    kept = [t.clone() for t in first]
+    second = step(b)
+    torch.cuda.synchronize()
+    assert _counts(step) == (2, 4, 2)
+    for f, k, s in zip(first, kept, second):
+        assert torch.equal(f, k) and f.data_ptr() != s.data_ptr()
+    assert not torch.equal(first[1], second[1])
+
+
+@pytest.mark.gpu
+def test_grad_enabled_forward_inside_a_step_runs_eagerly_on_card(card_models):
+    """On the card too a forward under grad inside a step's calls runs
+    eagerly, after the shape's graph was captured, and gives the graph's
+    features."""
+    model, sr = (copy.deepcopy(m) for m in card_models)
+    step = make_city_step(model, sr, dtype=torch.float32, device="cuda")
+    image = _card_images(4, 31)
+    step(image)
+    step(image)
+    assert _counts(step) == (2, 0, 2)
+    rgb = image.permute(0, 3, 1, 2)[:, :3].contiguous(
+        memory_format=torch.channels_last)
+    with torch.inference_mode(), predictor._running(step.graphs):
+        graphed = sr(rgb, features_only=True).clone()
+    with predictor._running(step.graphs), torch.enable_grad():
+        fea = sr(rgb, features_only=True)
+    assert fea.requires_grad and _counts(step) == (2, 1, 3)
+    assert torch.equal(fea.detach(), graphed)
+
+
 def _explode(_image):
     raise AssertionError("the step ran for a finished city")
 
@@ -265,6 +454,7 @@ def _cli_tree(root, models):
     tables, the JAX package's npz checkpoint ``checkpoint20.npz`` (epoch
     20) and SR weights."""
     region = os.path.join(root, "data", "urban", "input_data", "s2chn_large")
+    save_tree_npz = _jax().save_tree_npz
     write_city(region, "alpha", seed=1, w=120, h=120)
     write_city(region, "beta", seed=2, w=140, h=100)
     logdir = os.path.join(root, "logs")
