@@ -67,6 +67,12 @@ from srbh_tpu_torch.utils import profiler
 RGB_MEAN = (0.4488, 0.4371, 0.4040)
 
 
+def _pair(ws) -> tuple:
+    """A window size as (height, width): an int is a square window
+    (SwinIR's), a pair a rectangle (DAT's)."""
+    return (ws, ws) if isinstance(ws, int) else tuple(ws)
+
+
 def window_partition(x: torch.Tensor, ws: int) -> torch.Tensor:
     """(B, H, W, C) -> (B*nW, ws*ws, C), windows image-major."""
     b, h, w, c = x.shape
@@ -82,27 +88,33 @@ def window_reverse(x: torch.Tensor, ws: int, h: int, w: int) -> torch.Tensor:
     return x.reshape(b, h, w, c)
 
 
-def relative_position_index(ws: int) -> np.ndarray:
-    """(ws^2, ws^2) indices into the (2ws-1)^2 bias table."""
-    coords = np.stack(np.meshgrid(np.arange(ws), np.arange(ws), indexing="ij"))
+def relative_position_index(ws) -> np.ndarray:
+    """(N, N) indices into the (2wh-1)(2ww-1) bias table, N = wh*ww, rows
+    by the vertical offset."""
+    wh, ww = _pair(ws)
+    coords = np.stack(np.meshgrid(np.arange(wh), np.arange(ww), indexing="ij"))
     flat = coords.reshape(2, -1)
     rel = (flat[:, :, None] - flat[:, None, :]).transpose(1, 2, 0)
-    rel[:, :, 0] += ws - 1
-    rel[:, :, 1] += ws - 1
-    rel[:, :, 0] *= 2 * ws - 1
+    rel[:, :, 0] += wh - 1
+    rel[:, :, 1] += ww - 1
+    rel[:, :, 0] *= 2 * ww - 1
     return rel.sum(-1)
 
 
-def shift_attn_mask(h: int, w: int, ws: int, shift: int) -> np.ndarray:
-    """(nW, ws^2, ws^2) additive mask (0 / -100) for shifted windows."""
+def shift_attn_mask(h: int, w: int, ws, shift) -> np.ndarray:
+    """(nW, N, N) additive mask (0 / -100) for windows shifted by ``shift``
+    (an int, or (sh, sw) with ``ws`` (wh, ww)): -100 between tokens of a
+    window that come from different ones of the image's nine regions."""
+    wh, ww = _pair(ws)
+    sh, sw = _pair(shift)
     img_mask = np.zeros((h, w), np.float32)
     cnt = 0
-    for hs in (slice(0, -ws), slice(-ws, -shift), slice(-shift, None)):
-        for vs in (slice(0, -ws), slice(-ws, -shift), slice(-shift, None)):
+    for hs in (slice(0, -wh), slice(-wh, -sh), slice(-sh, None)):
+        for vs in (slice(0, -ww), slice(-ww, -sw), slice(-sw, None)):
             img_mask[hs, vs] = cnt
             cnt += 1
-    mw = img_mask.reshape(h // ws, ws, w // ws, ws)
-    mw = mw.transpose(0, 2, 1, 3).reshape(-1, ws * ws)
+    mw = img_mask.reshape(h // wh, wh, w // ww, ww)
+    mw = mw.transpose(0, 2, 1, 3).reshape(-1, wh * ww)
     diff = mw[:, None, :] - mw[:, :, None]
     return np.where(diff != 0, -100.0, 0.0).astype(np.float32)
 
@@ -119,7 +131,7 @@ def drop_path(x: torch.Tensor, rate: float,
 
 
 @functools.lru_cache(maxsize=8)
-def _device_shift_mask(h: int, w: int, ws: int, shift: int,
+def _device_shift_mask(h: int, w: int, ws, shift,
                        device: torch.device) -> torch.Tensor:
     """:func:`shift_attn_mask` on ``device``, made once per shape; callers
     only read it."""

@@ -1,5 +1,5 @@
 """SwinIR test harness: task presets, image pairs, tiled inference and the
-metric report.
+metric report, for SwinIR and DAT.
 
 Counterpart of ``srbh_tpu/tools/swinir_harness.py`` (SR/main_test_swinir.py):
 ``define_model`` (seeded random weights), ``setup``, :func:`get_image_pair`
@@ -7,12 +7,16 @@ for the seven tasks, ``pad_to_window_multiple``, ``tiled_inference``,
 :func:`run_folder` (PSNR / SSIM / PSNR-B, Y-channel variants, ``*_SwinIR.png``
 outputs) and :func:`main`, runnable as ``python -m
 srbh_tpu_torch.tools.swinir_harness``; plus :func:`apply`, the NHWC forward.
+``arch="dat"`` (``--arch dat``) builds DAT (``models/dat.py``, Chen et al.
+2023) in place of SwinIR for the classical SR task, and every entry point
+runs it as it runs SwinIR; its outputs are ``*_DAT.png``.
 
 Images are PNG files read and written by ``data/png.py`` with cv2's
 conventions (BGR order: the model sees RGB, the metrics and files BGR). The
 two JPEG tasks need cv2's JPEG codec and import cv2 in their branch only:
 without cv2 they raise ``ImportError``. On a card every window attention of
-the model runs the Hopper kernel.
+SwinIR runs the Hopper kernel; DAT's 256-token windows run a library route
+(``ops/dat_attention.py``).
 """
 from __future__ import annotations
 
@@ -33,12 +37,17 @@ from srbh_tpu_torch.metrics.image import (
     calculate_psnrb,
     calculate_ssim,
 )
+from srbh_tpu_torch.models.dat import DAT
 from srbh_tpu_torch.models.layers import init_weights
 from srbh_tpu_torch.models.swinir import SwinIR
 from srbh_tpu_torch.utils import profiler
 
 TASKS = ("classical_sr", "lightweight_sr", "real_sr", "gray_dn", "color_dn",
          "jpeg_car", "color_jpeg_car")
+ARCHS = ("swinir", "dat")
+# the derived buffers of a published state dict, recomputed by the models
+DERIVED = ("relative_position_index", "attn_mask", "attn_mask_0",
+           "attn_mask_1", "rpe_biases")
 
 
 def _preset(task: str, scale: int, large_model: bool) -> dict:
@@ -69,20 +78,42 @@ def _preset(task: str, scale: int, large_model: bool) -> dict:
     raise ValueError(f"unknown task {task!r}")
 
 
+def _dat_preset(task: str, scale: int) -> dict:
+    """DAT's arguments (the published ``options/Test/test_DAT_x{2,3,4}.yml``:
+    classical SR only)."""
+    if task != "classical_sr":
+        raise ValueError(f"DAT is published for classical_sr, not {task!r}")
+    return dict(upscale=scale, in_chans=3, img_range=1.0, embed_dim=180,
+                split_size=(8, 32), depth=(6,) * 6, num_heads=(6,) * 6,
+                expansion_factor=4.0, qkv_bias=True, resi_connection="1conv",
+                upsampler="pixelshuffle")
+
+
 def define_model(task: str, scale: int = 1, large_model: bool = False,
-                 device=None, seed: int = 0) -> SwinIR:
-    """The task's SwinIR preset with seeded random weights, in eval mode on
-    ``device`` (``None`` is the card)."""
+                 device=None, seed: int = 0, arch: str = "swinir"):
+    """The task's SwinIR preset, or with ``arch="dat"`` DAT's, with seeded
+    random weights (DAT's temperatures at their published ones), in eval
+    mode on ``device`` (``None`` is the card)."""
     dev = resolve_device(device)
-    model = SwinIR(**_preset(task, scale, large_model))
+    if arch == "dat":
+        model = DAT(**_dat_preset(task, scale))
+    elif arch == "swinir":
+        model = SwinIR(**_preset(task, scale, large_model))
+    else:
+        raise ValueError(f"unknown arch {arch!r}; one of {ARCHS}")
     init_weights(model, torch.Generator().manual_seed(seed))
+    for name, p in model.named_parameters():
+        if name.endswith(".temperature"):
+            p.data.fill_(1.0)
+    if arch == "dat":
+        model.prepare()  # the weights were written in place
     return model.eval().to(dev)
 
 
-def apply(model: SwinIR, x) -> torch.Tensor:
-    """Run ``model`` on an NHWC image batch (array or tensor) on the model's
-    device under ``torch.inference_mode()``; returns NHWC. The call is the
-    span ``swinir.apply``."""
+def apply(model, x) -> torch.Tensor:
+    """Run ``model`` (SwinIR or DAT) on an NHWC image batch (array or
+    tensor) on the model's device under ``torch.inference_mode()``; returns
+    NHWC. The call is the span ``swinir.apply``."""
     dev = next(model.parameters()).device
     with profiler.span("swinir.apply"):
         x = torch.as_tensor(x, device=dev).permute(0, 3, 1, 2)
@@ -188,7 +219,7 @@ def tiled_inference(apply_fn: Callable, img_lq: np.ndarray, scale: int,
     return E / W
 
 
-def run_folder(task: str, folder: str, model: SwinIR, scale: int = 1,
+def run_folder(task: str, folder: str, model, scale: int = 1,
                folder_lq: Optional[str] = None, noise: int = 15,
                jpeg: int = 40, tile: Optional[int] = None,
                tile_overlap: int = 32, save_dir: Optional[str] = None,
@@ -196,7 +227,8 @@ def run_folder(task: str, folder: str, model: SwinIR, scale: int = 1,
     """Evaluate every image of ``folder`` with ``model`` on ``device``
     (``None`` is the card; without one this raises unless ``device="cpu"``);
     returns the averaged metrics (``None`` where no image gave one) and,
-    with ``save_dir``, writes each output as ``<name>_SwinIR.png``."""
+    with ``save_dir``, writes each output as ``<name>_<model class>.png``
+    (``_SwinIR``, ``_DAT``)."""
     dev = resolve_device(device)
     model = model.to(dev).eval()
     border, window_size = setup(task, scale)
@@ -220,7 +252,9 @@ def run_folder(task: str, folder: str, model: SwinIR, scale: int = 1,
             out = out[..., ::-1]
         out8 = np.squeeze((np.clip(out, 0, 1) * 255.0).round().astype(np.uint8))
         if save_dir:
-            png.imwrite(os.path.join(save_dir, f"{name}_SwinIR.png"), out8)
+            png.imwrite(os.path.join(save_dir,
+                                     f"{name}_{type(model).__name__}.png"),
+                        out8)
         if gt is None:
             continue
         gt8 = (gt * 255.0).round().astype(np.uint8)
@@ -240,14 +274,16 @@ def run_folder(task: str, folder: str, model: SwinIR, scale: int = 1,
     return {k: (sum(v) / len(v) if v else None) for k, v in results.items()}
 
 
-def load_weights(model: SwinIR, path: str, task: str) -> None:
+def load_weights(model, path: str, task: str) -> None:
     """Load ``path`` into ``model``: the JAX package's ``.npz`` of
-    ``{"params": ...}`` (through ``convert.swinir_state_dict``), or a torch
-    file holding a state dict with the reference's names, alone or under
-    ``params`` (``params_ema`` for ``real_sr``: the reference's
-    ``param_key_g``); the reference's derived ``relative_position_index`` /
-    ``attn_mask`` buffers are dropped."""
+    ``{"params": ...}`` (through ``convert.swinir_state_dict``; SwinIR
+    only), or a torch file holding a state dict with the reference's names,
+    alone or under ``params`` (``params_ema`` for ``real_sr``: the
+    reference's ``param_key_g``); the reference's derived buffers
+    (:data:`DERIVED`) are dropped."""
     if path.endswith(".npz"):
+        if not isinstance(model, SwinIR):
+            raise ValueError("an .npz holds the JAX package's SwinIR only")
         depths = [len(layer.residual_group.blocks) for layer in model.layers]
         sd = convert.swinir_state_dict(
             {"params": convert.load_tree_npz(path)["params"]}, depths,
@@ -256,7 +292,7 @@ def load_weights(model: SwinIR, path: str, task: str) -> None:
         sd = torch.load(path, map_location="cpu", weights_only=True)
         sd = sd.get("params_ema" if task == "real_sr" else "params", sd)
         sd = {k: v for k, v in sd.items()
-              if not k.endswith(("relative_position_index", "attn_mask"))}
+              if k.rpartition(".")[2] not in DERIVED}
     model.load_state_dict(sd)
 
 
@@ -265,8 +301,8 @@ def main(argv=None, device=None) -> dict:
     of SR/main_test_swinir.py:14-45 on ``device`` (``None`` is the card;
     without one this raises unless ``device="cpu"``). Weights come from
     ``--model_path`` (no download); without it the preset's seeded random
-    weights run (smoke mode). Outputs go to ``results/swinir_{task}_x{scale}``
-    in the working directory."""
+    weights run (smoke mode). ``--arch dat`` runs DAT. Outputs go to
+    ``results/{arch}_{task}_x{scale}`` in the working directory."""
     dev = resolve_device(device)
     p = argparse.ArgumentParser()
     p.add_argument("--task", default="color_dn", choices=TASKS)
@@ -274,8 +310,10 @@ def main(argv=None, device=None) -> dict:
     p.add_argument("--noise", type=int, default=15)
     p.add_argument("--jpeg", type=int, default=40)
     p.add_argument("--large_model", action="store_true")
+    p.add_argument("--arch", default="swinir", choices=ARCHS)
     p.add_argument("--model_path", default=None,
-                   help="a torch state dict of SwinIR or the JAX package's npz")
+                   help="a torch state dict of the model, or the JAX "
+                        "package's npz of SwinIR")
     p.add_argument("--folder_lq", default=None)
     p.add_argument("--folder_gt", default=None)
     p.add_argument("--tile", type=int, default=None)
@@ -284,12 +322,12 @@ def main(argv=None, device=None) -> dict:
 
     folder = args.folder_gt if args.task != "real_sr" else args.folder_lq
     model = define_model(args.task, args.scale, large_model=args.large_model,
-                         device="cpu")
+                         device="cpu", arch=args.arch)
     if args.model_path:
         load_weights(model, args.model_path, args.task)
     else:
         print("no --model_path: random init (smoke mode)")
-    save_dir = f"results/swinir_{args.task}_x{args.scale}"
+    save_dir = f"results/{args.arch}_{args.task}_x{args.scale}"
     res = run_folder(args.task, folder, model, args.scale, args.folder_lq,
                      args.noise, args.jpeg, args.tile, args.tile_overlap,
                      save_dir, device=dev)

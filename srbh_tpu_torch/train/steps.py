@@ -24,6 +24,12 @@ drop-connect and augmentation draws of each row's global index, the
 model's gradients averaged by DDP (or by FSDP2, for a model
 ``parallel.mesh.shard_state_fsdp`` wrapped), the log-vars' gradient
 averaged, and the metrics the global batch's.
+
+Spans (``utils/profiler.py``): the train step is the root ``train.step``,
+over ``train.sr_features`` (the frozen SR forward), ``train.model_pass``
+(the height model's forward, the losses, the backward and the gradient
+average) and ``train.adam`` (the update), each with ``device=True``; the
+batch's copy to the card and its augmentation sit in the root alone.
 """
 from __future__ import annotations
 
@@ -51,6 +57,7 @@ from srbh_tpu_torch.parallel.data import (
     global_batchnorm,
     mean_over,
 )
+from srbh_tpu_torch.utils import profiler
 
 
 def _to_device(batch, keys, dev):
@@ -182,19 +189,26 @@ def make_train_step(model, sr_model, rgb_idx=(0, 1, 2), isaggre: bool = True,
             norm = {k: torch.as_tensor(np.asarray(v, np.float64), device=dev)
                     for k, v in norm.items()}
 
-    def forward_loss(state, batch):
+    def prepare(state, batch):
+        """The batch on the device (augmented, with ``device_aug``), its
+        NCHW image and the frozen SR features."""
         b = _to_device(batch, keys, dev)
         if device_aug:
             b = _augment(b, dev, seed, state.step, norm, lut, cw, isaggre,
                          ishir, rows)
         image = _nchw(b["image"])
+        with profiler.span("train.sr_features", device=True), \
+                compute_type(dev, dtype):
+            fea = _features(sr_model, image, rgb)
+        return b, image, fea
+
+    def model_loss(state, b, image, fea):
         height_t = b["height"].float()
         model.train()
         gen = torch.Generator(device=dev).manual_seed(step_seed(seed, state.step))
         if group is not None:
             gen = BatchRows(gen, *rows)
         with compute_type(dev, dtype):
-            fea = _features(sr_model, image, rgb)
             outs = net(image, *fea, generator=gen)
         lv = state.log_vars
         height = outs[0][:, 0].float()
@@ -212,13 +226,20 @@ def make_train_step(model, sr_model, rgb_idx=(0, 1, 2), isaggre: bool = True,
         mse = torch.mean((height.detach() - height_t) ** 2)
         return loss, torch.sqrt(mean_over(mse, group))
 
+    def forward_loss(state, batch):
+        return model_loss(state, *prepare(state, batch))
+
     def step(state, batch, lr):
-        loss, rmse = forward_loss(state, batch)
-        loss.backward()
-        average_gradients([state.log_vars], group)
-        state.apply_gradients(lr)
-        return {"loss": mean_over(loss, group), "rmse": rmse,
-                "log_vars": state.log_vars.detach().clone()}
+        with profiler.span("train.step"):
+            prepared = prepare(state, batch)
+            with profiler.span("train.model_pass", device=True):
+                loss, rmse = model_loss(state, *prepared)
+                loss.backward()
+                average_gradients([state.log_vars], group)
+            with profiler.span("train.adam", device=True):
+                state.apply_gradients(lr)
+            return {"loss": mean_over(loss, group), "rmse": rmse,
+                    "log_vars": state.log_vars.detach().clone()}
 
     step.forward_loss = forward_loss
     return step

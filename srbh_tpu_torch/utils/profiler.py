@@ -15,9 +15,12 @@ step and the GAN step each open a :func:`span` at their layers
 ``predict.sr_features``, ``predict.height_model``, ``predict.capture``,
 ``predict.replay``, ``predict.copy_out``, ``predict.finalize``,
 ``predict.write``, ``tiff.encode``, ``gan.step``, ``gan.g_pass``,
-``gan.g_adam``, ``gan.d_pass``, ``gan.d_adam``, ``gan.ema``), and so does
-SwinIR (``swinir.apply``, ``swinir.body``, ``swinir.rstb``,
-``swinir.upsample``). They record only while a
+``gan.g_adam``, ``gan.d_pass``, ``gan.d_adam``, ``gan.ema``), and so do
+the height train step (``train.step``, ``train.sr_features``,
+``train.model_pass``, ``train.adam``), SwinIR (``swinir.apply``,
+``swinir.body``, ``swinir.rstb``, ``swinir.upsample``) and DAT
+(``dat.body``, ``dat.group``, ``dat.spatial_attn``, ``dat.spatial_core``,
+``dat.channel_attn``, ``dat.sgfn``, ``dat.upsample``). They record only while a
 ``torch.profiler`` session records or a :func:`recording` block is open;
 otherwise :func:`span` returns one shared object that does nothing, after a
 single check: no clock reading, no allocation, no CUDA event.
